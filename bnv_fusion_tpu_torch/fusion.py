@@ -1,0 +1,577 @@
+"""Local-level fusion (cell-keyed sort-reduce) and SDF decode through the
+sparse volume.
+
+Counterpart of bnv_fusion_tpu/fusion.py:259-1251 for dense slot-map tables.
+Local fusion: a frame's oriented points are sorted by containing cell, encoded
+by the PointNet MLP, reduced per (cell, floor/ceil code) group, scattered to
+the 8 corner voxels, reduced again per voxel, and folded into the table with
+the reference's running mean (weight = clip(count / 32, 1), voxels under
+min_pts_in_grid points dropped).  ``fuse_frames_merged`` folds K frames into
+one table update.  Tables are updated IN PLACE.  All sorts are stable, like
+``lax.sort``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from bnv_fusion_tpu_torch import nn as bnn
+from bnv_fusion_tpu_torch import tables as tbl
+from bnv_fusion_tpu_torch import voxel
+from bnv_fusion_tpu_torch.kernels import (fused_corner_decode,
+                                          seg_reduce_sorted,
+                                          seg_reduce_sorted_torch)
+
+
+class FrameStats(NamedTuple):
+    """Per-frame fusion statistics (device scalars, or [K] for a batch)."""
+
+    n_avg_pts: torch.Tensor
+    n_touched: torch.Tensor
+    n_valid_pts: torch.Tensor
+
+
+def _prepend(x: torch.Tensor, value) -> torch.Tensor:
+    """[value, x[..., :-1]] along the last axis."""
+    pad = torch.full(x.shape[:-1] + (1,), value, dtype=x.dtype, device=x.device)
+    return torch.cat([pad, x[..., :-1]], dim=-1)
+
+
+def _append(x: torch.Tensor, value) -> torch.Tensor:
+    """[x[..., 1:], value] along the last axis."""
+    pad = torch.full(x.shape[:-1] + (1,), value, dtype=x.dtype, device=x.device)
+    return torch.cat([x[..., 1:], pad], dim=-1)
+
+
+def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """cumsum over dim 0 of [M, C], scanned along the innermost dim of a
+    [C, M] copy: CUDA's outer-dim scan runs one thread per column, which
+    took 346 ms for one [280k, 8] gradient scatter on the H100."""
+    return torch.cumsum(x.T.contiguous(), dim=1).T
+
+
+def _compact_ends(is_end: torch.Tensor, width: int) -> torch.Tensor:
+    """Positions of the first ``width`` True entries of [..., M] in order,
+    padded with M (a sort, like the JAX path; no host sync)."""
+    m = is_end.shape[-1]
+    idx = torch.arange(m, device=is_end.device).expand_as(is_end)
+    return torch.sort(torch.where(is_end, idx, m), dim=-1).values[..., :width]
+
+
+# ---------------------------------------------------------------------------
+# local fusion
+# ---------------------------------------------------------------------------
+
+def _cell_keys(pts_w, valid, bound_min, bound_max, voxel_size: float, n_xyz,
+               n_vox: int):
+    """Bound mask + (cell, mcode) keys of points [..., N, 3]; invalid entries
+    get (n_vox, 8).  Returns (inside, cell, mcode, coords)."""
+    nx, ny, nz = (int(v) for v in n_xyz)
+    inside = torch.all((pts_w > bound_min + voxel_size) &
+                       (pts_w < bound_max - voxel_size), dim=-1) & valid
+    coords = voxel.position_to_coords(pts_w, bound_min, voxel_size)
+    fl = torch.floor(coords)
+    mi = (torch.ceil(coords) > fl).to(torch.int32)
+    # clamp first: float->int of out-of-range or NaN values is undefined
+    fi = torch.nan_to_num(fl, nan=-1.0).clamp(-1, 2 ** 30).to(torch.int32)
+    nmax = torch.as_tensor([nx, ny, nz], dtype=torch.int32, device=pts_w.device)
+    inside = inside & torch.all(fi >= 0, dim=-1) & \
+        torch.all(fi + mi < nmax, dim=-1)
+    fi = torch.where(inside[..., None], fi, 0)
+    cell = fi[..., 0] * (ny * nz) + fi[..., 1] * nz + fi[..., 2]
+    mcode = mi[..., 0] * 4 + mi[..., 1] * 2 + mi[..., 2]
+    cell = torch.where(inside, cell, n_vox)
+    mcode = torch.where(inside, mcode, 8)
+    return inside, cell, mcode, coords
+
+
+def _cellsort_sort1(pts_w, normals, valid, bound_min, bound_max,
+                    voxel_size: float, n_xyz, n_vox: int):
+    """Stage-1 front over [..., N] points: bound mask + cell keys + a stable
+    sort by (cell, mcode).  Returns (cell_s, mcode_s, coords_s, normals_s,
+    n_valid)."""
+    inside, cell, mcode, coords = _cell_keys(pts_w, valid, bound_min,
+                                             bound_max, voxel_size, n_xyz, n_vox)
+    zero = torch.zeros((), dtype=coords.dtype, device=coords.device)
+    coords_z = torch.where(inside[..., None], coords, zero)
+    normals_z = torch.where(inside[..., None], normals, zero)
+    order = torch.argsort(cell.long() * 16 + mcode.long(), dim=-1, stable=True)
+    o3 = order[..., None].expand(order.shape + (3,))
+    return (torch.gather(cell, -1, order), torch.gather(mcode, -1, order),
+            torch.gather(coords_z, -2, o3), torch.gather(normals_z, -2, o3),
+            inside.to(torch.float32).sum(-1))
+
+
+def _corner_keys(cell_u, mcode_u, gmask, n_xyz, n_vox: int):
+    """Per cell group [..., U] -> the 8 corner voxel flat ids [..., U, 8]
+    (cell + pattern * degeneracy, matching voxel.corner_neighbors)."""
+    _, ny, nz = (int(v) for v in n_xyz)
+    pattern = voxel.corner_pattern(cell_u.device)                # [8, 3]
+    moff = torch.stack([(mcode_u >> 2) & 1, (mcode_u >> 1) & 1, mcode_u & 1],
+                       dim=-1)                                   # [..., U, 3]
+    offs = pattern * moff[..., None, :]                          # [..., U, 8, 3]
+    ckey = cell_u[..., None] + offs[..., 0] * (ny * nz) + offs[..., 1] * nz + \
+        offs[..., 2]
+    return torch.where(gmask[..., None], ckey, n_vox)
+
+
+def _cellsort_reduce(params, pts_w, normals, valid, bound_min, bound_max,
+                     voxel_size: float, max_unique: int,
+                     max_unique_cells: Optional[int], n_xyz, n_vox: int,
+                     fdim: int):
+    """One frame's points -> per-unique-voxel (flat id, count, feature sum)
+    padded to width ``max_unique``, through the mean-centered cumsum
+    reductions of the JAX package's per-frame path.
+
+    Returns (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped,
+    n_valid_pts)."""
+    n = pts_w.shape[0]
+    dev = pts_w.device
+    u_cell = min(max_unique_cells if max_unique_cells else max_unique, n)
+
+    cell_s, mcode_s, coords_s, normals_s, n_inside = _cellsort_sort1(
+        pts_w, normals, valid, bound_min, bound_max, voxel_size, n_xyz, n_vox)
+    entry_valid = cell_s < n_vox
+
+    corners_s = voxel.corner_neighbors(coords_s)
+    rel = voxel.local_offsets(coords_s, corners_s)
+    pn_in = torch.cat([rel, normals_s[:, None, :].expand_as(rel)], dim=-1)
+    feats = bnn.encoder_apply(params, pn_in)                     # [N, 8, F]
+    f8 = torch.where(entry_valid[:, None, None], feats,
+                     torch.zeros((), device=dev)).reshape(n, 8 * fdim)
+
+    boundary = (cell_s != _prepend(cell_s, -1)) | \
+        (mcode_s != _prepend(mcode_s, -1))
+    ch_mean = torch.mean(f8, dim=0, keepdim=True)
+    cum = _cumsum_rows(f8 - ch_mean)
+    is_end = _append(boundary, True) & entry_valid
+    n_groups = is_end.sum().to(torch.int32)
+
+    end_pos = torch.clamp(_compact_ends(is_end, u_cell), max=n - 1)
+    gmask = torch.arange(u_cell, device=dev) < torch.clamp(n_groups, max=u_cell)
+    prev_end = _prepend(end_pos, -1)
+    cell_u = cell_s[end_pos]
+    mcode_u = mcode_s[end_pos]
+    gcnt = (end_pos - prev_end).to(torch.int32)
+    cum_lo = torch.where((prev_end >= 0)[:, None],
+                         cum[prev_end.clamp(min=0)], torch.zeros((), device=dev))
+    gsum = cum[end_pos] - cum_lo + ch_mean * gcnt.to(torch.float32)[:, None]
+    cells_dropped = torch.clamp(n_groups - u_cell, min=0)
+
+    # ---- stage 2: merge per-cell partials into corner voxel totals ----
+    m2 = u_cell * 8
+    ck = _corner_keys(cell_u, mcode_u, gmask, n_xyz, n_vox).reshape(m2)
+    f2 = torch.where(gmask[:, None, None], gsum.reshape(u_cell, 8, fdim),
+                     torch.zeros((), device=dev)).reshape(m2, fdim)
+    c2 = torch.where(gmask[:, None], gcnt[:, None].expand(u_cell, 8),
+                     0).reshape(m2)
+    order = torch.argsort(ck, stable=True)
+    ck_s, f2_s, c2_s = ck[order], f2[order], c2[order]
+
+    ev2 = ck_s < n_vox
+    mean2 = torch.mean(f2_s, dim=0, keepdim=True)
+    cum2 = _cumsum_rows(f2_s - mean2)
+    ccum2 = torch.cumsum(c2_s, dim=0)                            # exact ints
+    is_end2 = _append(ck_s != _prepend(ck_s, -1), True) & ev2
+    n_unique = is_end2.sum().to(torch.int32)
+
+    u = min(max_unique, m2)
+    end2 = torch.clamp(_compact_ends(is_end2, u), max=m2 - 1)
+    umask = torch.arange(u, device=dev) < torch.clamp(n_unique, max=u)
+    pend2 = _prepend(end2, -1)
+    flat_u = ck_s[end2]
+    seg_n = (end2 - pend2).to(torch.float32)
+    clo = torch.where(pend2 >= 0, ccum2[pend2.clamp(min=0)], 0)
+    cnt_u = (ccum2[end2] - clo).to(torch.float32)
+    flo = torch.where((pend2 >= 0)[:, None], cum2[pend2.clamp(min=0)],
+                      torch.zeros((), device=dev))
+    sum_u = cum2[end2] - flo + mean2 * seg_n[:, None]
+    return (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped, n_inside)
+
+
+def _integrate_unique(table, flat_u, cnt_u, sum_u, umask, n_unique, u: int,
+                      min_pts_in_grid: int, extra_overflow=0) -> FrameStats:
+    """Shared fuse tail, in place: insert deduplicated voxels + the
+    reference's running-mean update (weight = clip(count/32, 1), voxels under
+    min_pts dropped)."""
+    slots, ok = tbl.insert_unique_flat(
+        table, torch.where(umask, flat_u, -1), umask)
+    dropped = torch.clamp(n_unique - u, min=0)
+
+    mean_u = sum_u / torch.clamp(cnt_u, min=1.0)[:, None]
+    new_w = torch.clamp(cnt_u / 32.0, max=1.0)
+    keep = umask & ok & (cnt_u >= min_pts_in_grid)
+    zero = torch.zeros((), device=sum_u.device)
+    old_w = torch.where(keep, table.weights[slots], zero)
+    old_f = torch.where(keep[:, None], table.features[slots], zero)
+    upd_w = old_w + new_w
+    upd_f = (old_f * old_w[:, None] + mean_u * new_w[:, None]) / \
+        torch.clamp(upd_w, min=1e-12)[:, None]
+    old_h = torch.where(keep, table.num_hits[slots], zero)
+
+    ks = slots[keep]
+    table.features[ks] = upd_f[keep]
+    table.weights[ks] = upd_w[keep]
+    table.num_hits[ks] = old_h[keep] + 1.0
+    table.overflow = table.overflow + dropped + extra_overflow
+
+    nf = torch.clamp(n_unique.to(torch.float32), min=1.0)
+    return FrameStats(
+        n_avg_pts=torch.sum(torch.where(umask, cnt_u, zero)) / nf,
+        n_touched=n_unique.to(torch.float32),
+        n_valid_pts=torch.zeros((), device=sum_u.device))
+
+
+def fuse_frame_cellsort(table, params: Dict[str, Any], pts_w, normals, valid,
+                        bound_min, bound_max, voxel_size: float,
+                        min_pts_in_grid: int, max_unique: int = 1 << 17,
+                        max_unique_cells: Optional[int] = None) -> FrameStats:
+    """Integrate one frame's oriented points [N, 3] (+ normals, validity)
+    into a dense table, in place, by the two-stage cell-keyed sort-reduce."""
+    (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped,
+     n_valid) = _cellsort_reduce(params, pts_w, normals, valid, bound_min,
+                                 bound_max, voxel_size, max_unique,
+                                 max_unique_cells, table.n_xyz,
+                                 table.n_voxels, table.feat_dims)
+    stats = _integrate_unique(table, flat_u, cnt_u, sum_u, umask, n_unique, u,
+                              min_pts_in_grid, extra_overflow=cells_dropped)
+    return stats._replace(n_valid_pts=n_valid)
+
+
+def _encode_sorted_fm(params, coords_s, normals_s, entry_valid):
+    """Encoder over one frame's sorted points, FEATURE-MAJOR output [F*8, N]
+    with channel = f*8 + p (feature-major, corner-minor) — the layout the
+    segmented reduce takes.  Invalid points encode to zero."""
+    n = coords_s.shape[0]
+    corners = voxel.corner_neighbors(coords_s)
+    rel = voxel.local_offsets(coords_s, corners)                 # [N, 8, 3]
+    pn_in = torch.cat([rel, normals_s[:, None, :].expand_as(rel)], dim=-1)
+    feats = bnn.encoder_apply(params, pn_in)                     # [N, 8, F]
+    feats = torch.where(entry_valid[:, None, None], feats,
+                        torch.zeros((), device=feats.device))
+    return feats.permute(2, 1, 0).reshape(-1, n)
+
+
+def _cellsort_reduce_batched(params, pts_w, normals, valid, bound_min,
+                             bound_max, voxel_size: float, max_unique: int,
+                             max_unique_cells: Optional[int], n_xyz,
+                             n_vox: int, fdim: int, plain: bool = False,
+                             sort_bf16: bool = False):
+    """K-frame batched reduce front: both segment reductions go through
+    ``seg_reduce_sorted`` (the CUDA kernel on CUDA tensors; with ``plain``
+    the plain PyTorch version on any device).  Inputs are [K, N, ...];
+    returns the per-frame tuple of ``_cellsort_reduce`` stacked over K.
+
+    ``sort_bf16`` rounds the stage-2 per-cell partial sums to bfloat16
+    (round to nearest even) before the corner merge, as the JAX package's
+    bf16-packed stage-2 sort does."""
+    seg = seg_reduce_sorted_torch if plain else seg_reduce_sorted
+    kf, n = pts_w.shape[:2]
+    dev = pts_w.device
+    u_cell = min(max_unique_cells if max_unique_cells else max_unique, n)
+
+    cell_s, mcode_s, coords_s, normals_s, n_valid = _cellsort_sort1(
+        pts_w, normals, valid, bound_min, bound_max, voxel_size, n_xyz, n_vox)
+    entry_valid = cell_s < n_vox                                 # [K, N]
+    # encoder one frame at a time: its [8N, 64] activations dominate memory
+    f8fm = torch.empty((kf, 8 * fdim, n), dtype=torch.float32, device=dev)
+    for k in range(kf):
+        f8fm[k] = _encode_sorted_fm(params, coords_s[k], normals_s[k],
+                                    entry_valid[k])
+
+    cnts1 = entry_valid.to(torch.int32)[:, None, :].contiguous()
+    cell_u, mcode_u, gcnt_i, gsum, n_groups = seg(
+        cell_s.contiguous(), cnts1, f8fm, u=u_cell, sent=int(n_vox),
+        keys2=mcode_s.contiguous())
+    del f8fm
+    gmask = torch.arange(u_cell, device=dev)[None, :] < \
+        torch.clamp(n_groups, max=u_cell)[:, None]               # [K, u_cell]
+    gcnt = gcnt_i[..., 0]
+    cells_dropped = torch.clamp(n_groups - u_cell, min=0)
+
+    # ---- stage 2: scatter per-cell partials to the 8 corner voxel ids ----
+    m2 = u_cell * 8
+    ck = _corner_keys(cell_u, mcode_u, gmask, n_xyz, n_vox).reshape(kf, m2)
+    # gsum channels are (f*8 + p) -> per-feature [K, F, u_cell * 8] planes
+    g3 = torch.where(gmask[:, :, None, None], gsum.reshape(kf, u_cell, fdim, 8),
+                     torch.zeros((), device=dev))
+    fch = g3.permute(0, 2, 1, 3).reshape(kf, fdim, m2)
+    c2 = torch.where(gmask[:, :, None], gcnt[:, :, None].expand(kf, u_cell, 8),
+                     0).reshape(kf, m2)
+    if sort_bf16:
+        fch = fch.to(torch.bfloat16).to(torch.float32)
+    order = torch.argsort(ck, dim=-1, stable=True)
+    ck_s = torch.gather(ck, -1, order).contiguous()
+    f2_s = torch.gather(fch, -1, order[:, None, :].expand(kf, fdim, m2))
+    c2_s = torch.gather(c2, -1, order)[:, None, :].contiguous()
+
+    u = min(max_unique, m2)
+    flat_u, _, cnt_i, sum_u, n_unique = seg(
+        ck_s, c2_s, f2_s.contiguous(), u=u, sent=int(n_vox))
+    umask = torch.arange(u, device=dev)[None, :] < \
+        torch.clamp(n_unique, max=u)[:, None]
+    cnt_u = cnt_i[..., 0].to(torch.float32)
+    return (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped, n_valid)
+
+
+def fuse_frames_merged(table, params: Dict[str, Any], pts_w, normals, valid,
+                       bound_min, bound_max, voxel_size: float,
+                       min_pts_in_grid: int, max_unique: int = 1 << 17,
+                       max_unique_cells: Optional[int] = None,
+                       max_unique_batch: Optional[int] = None,
+                       seg_kernel: bool | str = False,
+                       sort_bf16: bool = False) -> FrameStats:
+    """Fuse K frames [K, N, ...] with ONE table update, in place.
+
+    ``seg_kernel``: True = the batched front with ``seg_reduce_sorted`` (the
+    CUDA kernel on CUDA tensors); "interpret" = the batched front with the
+    plain seg-reduce; False = the per-frame cumsum front of
+    ``_cellsort_reduce``.  The per-frame running mean is associative, so the
+    K frames' per-voxel contributions are merged (exact int32 weight sums,
+    feature sums of at most K entries) and applied once.
+
+    Returns FrameStats with [K]-shaped leaves."""
+    kf = pts_w.shape[0]
+    fdim = table.feat_dims
+    n_xyz, n_vox = table.n_xyz, table.n_voxels
+    dev = pts_w.device
+
+    if seg_kernel:
+        (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped,
+         n_valid) = _cellsort_reduce_batched(
+            params, pts_w, normals, valid, bound_min, bound_max, voxel_size,
+            max_unique, max_unique_cells, n_xyz, n_vox, fdim,
+            plain=(seg_kernel == "interpret"), sort_bf16=sort_bf16)
+    else:
+        outs = [_cellsort_reduce(params, pts_w[k], normals[k], valid[k],
+                                 bound_min, bound_max, voxel_size, max_unique,
+                                 max_unique_cells, n_xyz, n_vox, fdim)
+                for k in range(kf)]
+        u = outs[0][5]
+        (flat_u, cnt_u, sum_u, umask, n_unique, cells_dropped, n_valid) = (
+            torch.stack([o[i] for o in outs]) for i in (0, 1, 2, 3, 4, 6, 7))
+
+    zero = torch.zeros((), device=dev)
+    mean_u = sum_u / torch.clamp(cnt_u, min=1.0)[..., None]
+    nw = torch.clamp(cnt_u / 32.0, max=1.0)
+    keep = umask & (cnt_u >= min_pts_in_grid)
+
+    m3 = kf * u
+    key = torch.where(umask, flat_u, n_vox).reshape(m3)
+    # nw = min(cnt/32, 1) is an integer number of 1/32 units: its sums ride
+    # integers exactly
+    nw32 = torch.where(keep, torch.clamp(cnt_u, max=32.0), zero) \
+        .to(torch.int64).reshape(m3)
+    h32 = keep.to(torch.int64).reshape(m3)
+    s_z = torch.where(keep[..., None], mean_u * nw[..., None],
+                      zero).reshape(m3, fdim)
+
+    order = torch.argsort(key, stable=True)
+    key_s, nw_s, h_s, s_s = key[order], nw32[order], h32[order], s_z[order]
+    ev = key_s < n_vox
+    wcum = torch.cumsum(nw_s, 0)
+    hcum = torch.cumsum(h_s, 0)
+    is_end = _append(key_s != _prepend(key_s, -1), True) & ev
+    n_uniq_b = is_end.sum()
+
+    ub = min(max_unique_batch if max_unique_batch else 2 * max_unique, m3)
+    end = torch.clamp(_compact_ends(is_end, ub), max=m3 - 1)
+    bmask = torch.arange(ub, device=dev) < torch.clamp(n_uniq_b, max=ub)
+    pend = _prepend(end, -1)
+    flat_b = key_s[end]
+    wlo = torch.where(pend >= 0, wcum[pend.clamp(min=0)], 0)
+    W = (wcum[end] - wlo).to(torch.float32) / 32.0
+    hlo = torch.where(pend >= 0, hcum[pend.clamp(min=0)], 0)
+    H = (hcum[end] - hlo).to(torch.float32)
+    # a voxel appears at most once per frame: every merge segment has <= K
+    # entries, summed by K shifted gathers in the JAX package's order
+    seg_len = end - pend
+    S = torch.zeros((ub, fdim), dtype=torch.float32, device=dev)
+    for i in range(kf):
+        take = torch.clamp(end - i, min=0)
+        S = S + torch.where((i < seg_len)[:, None], s_s[take], zero)
+
+    slots, ok = tbl.insert_unique_flat(table, torch.where(bmask, flat_b, -1),
+                                       bmask)
+    dropped = torch.clamp(n_uniq_b - ub, min=0)
+    keep_b = bmask & ok & (W > 0)
+    old_w = torch.where(keep_b, table.weights[slots], zero)
+    old_f = torch.where(keep_b[:, None], table.features[slots], zero)
+    old_h = torch.where(keep_b, table.num_hits[slots], zero)
+    upd_w = old_w + W
+    upd_f = (old_f * old_w[:, None] + S) / torch.clamp(upd_w, min=1e-12)[:, None]
+    ks = slots[keep_b]
+    table.features[ks] = upd_f[keep_b]
+    table.weights[ks] = upd_w[keep_b]
+    table.num_hits[ks] = (old_h + H)[keep_b]
+    per_frame_dropped = torch.clamp(n_unique.long() - u, min=0).sum()
+    table.overflow = table.overflow + dropped + cells_dropped.long().sum() + \
+        per_frame_dropped
+
+    nf = torch.clamp(n_unique.to(torch.float32), min=1.0)
+    return FrameStats(
+        n_avg_pts=torch.sum(torch.where(umask, cnt_u, zero), dim=1) / nf,
+        n_touched=n_unique.to(torch.float32),
+        n_valid_pts=n_valid)
+
+
+# ---------------------------------------------------------------------------
+# SDF decode through the sparse volume
+# ---------------------------------------------------------------------------
+
+class DecodePrep(NamedTuple):
+    """Feature-independent precomputation of a decode batch."""
+
+    slots: torch.Tensor      # [8M] gather rows into features/weights
+    found: torch.Tensor      # [8M]
+    tw: torch.Tensor         # [M, 8] trilinear blend weights
+    local: torch.Tensor      # [M, 8, 3] corner-local offsets
+    w: torch.Tensor          # [M, 8] decode-mask weights
+    delta: Optional[torch.Tensor]   # [M, 8] prior samples
+
+
+def _sample_delta_nearest(sdf_delta: torch.Tensor, corners: torch.Tensor,
+                          n_xyz) -> torch.Tensor:
+    """Nearest-neighbour sample of the dense prior at fine-grid corner
+    coords (grid_sample nearest, align_corners=True, zero padding, over
+    coords normalized by n_xyz - 1)."""
+    dx, dy, dz = sdf_delta.shape
+    dev = corners.device
+    dims = torch.as_tensor([dx, dy, dz], dtype=torch.float32, device=dev)
+    nxf = torch.as_tensor([float(v) for v in n_xyz], dtype=torch.float32,
+                          device=dev)
+    u = corners.to(torch.float32) / (nxf - 1.0)
+    idx = torch.round(u * (dims - 1.0)).to(torch.int64)
+    dimi = torch.as_tensor([dx, dy, dz], dtype=torch.int64, device=dev)
+    inside = torch.all((idx >= 0) & (idx < dimi), dim=-1)
+    idx = torch.minimum(torch.clamp(idx, min=0), dimi - 1)
+    flat = idx[..., 0] * (dy * dz) + idx[..., 1] * dz + idx[..., 2]
+    vals = sdf_delta.reshape(-1)[flat.reshape(-1)].reshape(flat.shape)
+    return torch.where(inside, vals, torch.zeros((), device=dev))
+
+
+def decode_prepare(table, pts: torch.Tensor, bound_min, voxel_size: float,
+                   sdf_delta: Optional[torch.Tensor] = None, n_xyz=None,
+                   is_coords: bool = False,
+                   weights: Optional[torch.Tensor] = None) -> DecodePrep:
+    """Everything decode_points computes except the feature-dependent part.
+    ``weights`` overrides ``table.weights`` (the optimizer's bumped copy)."""
+    coords = pts if is_coords else voxel.position_to_coords(pts, bound_min,
+                                                            voxel_size)
+    corners = voxel.corner_neighbors(coords)
+    tw = voxel.trilinear_weights(coords, corners)
+    local = voxel.local_offsets(coords, corners)
+    m = coords.shape[0]
+    slots, found = tbl.lookup(table, corners.reshape(m * 8, 3))
+    wsrc = table.weights if weights is None else weights
+    w = torch.where(found, wsrc[slots], torch.zeros((), device=pts.device))
+    delta = (None if sdf_delta is None
+             else _sample_delta_nearest(sdf_delta, corners, n_xyz))
+    return DecodePrep(slots=slots, found=found, tw=tw, local=local,
+                      w=w.reshape(m, 8), delta=delta)
+
+
+def decode_eval(gathered_feats: torch.Tensor, prep: DecodePrep,
+                params: Dict[str, Any], voxel_size: float,
+                min_pts_in_grid: int,
+                masked_fill: Optional[float] = None) -> torch.Tensor:
+    """Feature-dependent tail of decode_points; differentiable w.r.t.
+    ``gathered_feats`` (= features[prep.slots])."""
+    m = prep.tw.shape[0]
+    zero = torch.zeros((), device=gathered_feats.device)
+    feats = torch.where(prep.found[:, None], gathered_feats,
+                        zero).reshape(m, 8, -1)
+    alpha = bnn.decoder_apply(params, prep.local, feats)[..., 0]
+    sdf = torch.sum(alpha * voxel_size * prep.tw, dim=-1)
+    mask = torch.amin(prep.w, dim=-1) >= min_pts_in_grid
+    fill = voxel_size if masked_fill is None else masked_fill
+    sdf = torch.where(mask, sdf, torch.full((), fill, device=sdf.device))
+    if prep.delta is not None:
+        sdf = sdf + torch.sum(prep.delta * prep.tw, dim=-1)
+    return sdf
+
+
+def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
+                  pts: torch.Tensor, bound_min, voxel_size: float,
+                  min_pts_in_grid: int,
+                  sdf_delta: Optional[torch.Tensor] = None, n_xyz=None,
+                  is_coords: bool = False, use_fused_kernel: bool = False,
+                  masked_fill: Optional[float] = None,
+                  layout: str = "rows") -> torch.Tensor:
+    """SDF at world points (or voxel coords) [M, 3] via 8-corner decode +
+    blend: corners under min_pts weight mask the point (+voxel_size, or
+    ``masked_fill``), the nearest-sampled prior is added.  With
+    ``use_fused_kernel`` the PE + MLP + blend run in ``fused_corner_decode``
+    (forward only)."""
+    if layout != "rows":
+        raise NotImplementedError(
+            "decode_layout=fm is not ported yet (ROADMAP Queue 1 item 8)")
+    prep = decode_prepare(table, pts, bound_min, voxel_size,
+                          sdf_delta=sdf_delta, n_xyz=n_xyz, is_coords=is_coords)
+    if not use_fused_kernel:
+        return decode_eval(features[prep.slots], prep, params, voxel_size,
+                           min_pts_in_grid, masked_fill=masked_fill)
+    m = prep.tw.shape[0]
+    feats = torch.where(prep.found[:, None], features[prep.slots],
+                        torch.zeros((), device=features.device))
+    sdf = fused_corner_decode(params, prep.local.contiguous(),
+                              feats.reshape(m, 8, -1).contiguous(),
+                              prep.tw.contiguous(), voxel_size)
+    mask = torch.amin(prep.w, dim=-1) >= min_pts_in_grid
+    fill = voxel_size if masked_fill is None else masked_fill
+    sdf = torch.where(mask, sdf, torch.full((), fill, device=sdf.device))
+    if prep.delta is not None:
+        sdf = sdf + torch.sum(prep.delta * prep.tw, dim=-1)
+    return sdf
+
+
+# ---------------------------------------------------------------------------
+# optimization helpers
+# ---------------------------------------------------------------------------
+
+def scatter_add_rows(gidx: torch.Tensor, rows: torch.Tensor, capacity: int,
+                     method: str = "sortreduce",
+                     unique_budget: Optional[int] = None) -> torch.Tensor:
+    """Accumulate [N, F] rows into a fresh [capacity, F] array by index;
+    ``gidx == capacity`` marks dropped rows.
+
+    "scatter" adds every row by index; "sortreduce" sorts rows by index,
+    takes per-channel cumsums, differences them at the compacted segment
+    ends and adds the unique rows once (falling back to "scatter" when the
+    segments exceed ``unique_budget``, default N // 4)."""
+    n, fdim = rows.shape
+    dev = rows.device
+    if method == "scatter":
+        out = torch.zeros((capacity + 1, fdim), dtype=rows.dtype, device=dev)
+        return out.index_add_(0, gidx, rows)[:capacity]
+    if method != "sortreduce":
+        raise ValueError(f"unknown grad_scatter method {method!r}")
+    ub = min(unique_budget or max(n // 4, 1 << 14), n)
+    order = torch.argsort(gidx, stable=True)
+    k = gidx[order]
+    csum = _cumsum_rows(rows[order])
+    is_end = _append(k, -1) != k
+    is_end[-1] = True
+    is_end = is_end & (k < capacity)
+    if int(is_end.sum()) > ub:
+        return scatter_add_rows(gidx, rows, capacity, method="scatter")
+    endpos = _compact_ends(is_end, ub)
+    valid = endpos < n
+    ec = torch.clamp(endpos, max=n - 1)
+    prev = _prepend(ec, -1)
+    sums = csum[ec] - torch.where((prev >= 0)[:, None], csum[prev.clamp(min=0)],
+                                  torch.zeros((), device=dev))
+    out = torch.zeros((capacity + 1, fdim), dtype=rows.dtype, device=dev)
+    return out.index_add_(0, torch.where(valid, k[ec], capacity), sums)[:capacity]
+
+
+def bump_optim_weights(weights: torch.Tensor, slots: torch.Tensor,
+                       found: torch.Tensor) -> torch.Tensor:
+    """+1 weight on every slot touched (once per call, duplicates collapse),
+    as the reference's count_optim.  Returns the new weights."""
+    cap = weights.shape[0]
+    bump = torch.zeros((cap + 1,), dtype=weights.dtype, device=weights.device)
+    bump[torch.where(found, slots, cap)] = 1.0
+    return weights + bump[:cap]

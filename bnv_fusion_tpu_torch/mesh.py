@@ -1,0 +1,447 @@
+"""Mesh extraction from the sparse neural volume + mesh utilities (numpy).
+
+Counterpart of bnv_fusion_tpu/mesh.py:33-582, host numpy only: sample points
+live on the deduplicated half-voxel lattice (each SDF value decoded once, in
+fixed-size batches by a caller-supplied decode function), surfaces come from
+vectorized marching tetrahedra (6 tetrahedra per cell, 16-case table derived
+at import), and the native C++ component (``native/``) runs the lattice build
+and the fused marching + weld pass.  PLY IO and area-weighted surface
+sampling replace trimesh.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+
+class Mesh(NamedTuple):
+    vertices: np.ndarray  # [V, 3] float32
+    faces: np.ndarray     # [F, 3] int32
+    colors: np.ndarray | None = None  # optional [V, 3] uint8 vertex colors
+
+
+# ---------------------------------------------------------------------------
+# Marching tetrahedra (vectorized)
+# ---------------------------------------------------------------------------
+
+# cube corners in (dx, dy, dz) bit order: index = 4*dx + 2*dy + dz
+_CUBE_CORNERS = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                          for z in (0, 1)], dtype=np.int64)
+# six tetrahedra around the main diagonal c0 (000) - c7 (111)
+_TETS = np.array([
+    [0, 4, 5, 7], [0, 5, 1, 7], [0, 1, 3, 7],
+    [0, 3, 2, 7], [0, 2, 6, 7], [0, 6, 4, 7]], dtype=np.int64)
+_TET_EDGES = np.array([[0, 1], [0, 2], [0, 3], [1, 2], [1, 3], [2, 3]],
+                      dtype=np.int64)
+
+
+def _build_tet_table() -> np.ndarray:
+    """16-case marching-tetrahedra table: [16, 2, 3] edge ids (-1 = unused).
+
+    Derived numerically on a canonical tetrahedron; triangle winding is fixed
+    so normals point from inside (sdf < 0) to outside.
+    """
+    verts = np.array([[0.0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]])
+    table = -np.ones((16, 2, 3), np.int64)
+    for mask in range(1, 15):
+        inside = [i for i in range(4) if mask & (1 << i)]
+        outside = [i for i in range(4) if not mask & (1 << i)]
+        cut = [e for e, (a, b) in enumerate(_TET_EDGES)
+               if (a in inside) != (b in inside)]
+        pts = {e: 0.5 * (verts[_TET_EDGES[e][0]] + verts[_TET_EDGES[e][1]])
+               for e in cut}
+        out_dir = verts[outside].mean(0) - verts[inside].mean(0)
+
+        def orient(tri):
+            a, b, c = (pts[e] for e in tri)
+            n = np.cross(b - a, c - a)
+            # the 6 cube tetrahedra in _TETS are all left-handed (det -1)
+            # relative to this right-handed canonical tet, so the winding
+            # that looks outward here maps to inward in the cube — invert.
+            return tri if np.dot(n, out_dir) < 0 else (tri[0], tri[2], tri[1])
+
+        if len(inside) in (1, 3):
+            table[mask, 0] = orient(tuple(cut))
+        else:  # 2-2 case: quad over 4 cut edges, ordered around the cycle
+            i0, i1 = inside
+            o0, o1 = outside
+
+            def edge_id(a, b):
+                a, b = min(a, b), max(a, b)
+                return next(e for e, (x, y) in enumerate(_TET_EDGES)
+                            if (x, y) == (a, b))
+
+            quad = [edge_id(i0, o0), edge_id(i0, o1),
+                    edge_id(i1, o1), edge_id(i1, o0)]
+            table[mask, 0] = orient((quad[0], quad[1], quad[2]))
+            table[mask, 1] = orient((quad[0], quad[2], quad[3]))
+    return table
+
+
+_TET_TABLE = _build_tet_table()
+
+
+def marching_tetrahedra(cell_origins: np.ndarray, cell_sdf: np.ndarray,
+                        level: float = 0.0,
+                        return_cell_ids: bool = False):
+    """Extract the iso-surface from sparse unit cells (vectorized numpy).
+
+    cell_origins: [M, 3] integer lattice origins; cell_sdf: [M, 8] SDF at the
+    cube corners in (4*dx + 2*dy + dz) order.  Returns vertices in lattice
+    units.  With ``return_cell_ids``, also returns the source cell index of
+    every face (for incremental mesh caching).
+    """
+    m = len(cell_origins)
+    if m == 0:
+        empty = Mesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32))
+        return (empty, np.zeros((0,), np.int64)) if return_cell_ids else empty
+    corners = (cell_origins[:, None, :].astype(np.float32) +
+               _CUBE_CORNERS[None, :, :])                      # [M, 8, 3]
+    s = cell_sdf - level
+
+    tet_v = corners[:, _TETS, :]                                # [M, 6, 4, 3]
+    tet_s = s[:, _TETS]                                         # [M, 6, 4]
+    tet_v = tet_v.reshape(-1, 4, 3)
+    tet_s = tet_s.reshape(-1, 4)
+
+    tet_cell = np.repeat(np.arange(m, dtype=np.int64), 6)
+
+    inside = tet_s < 0
+    mask = (inside * np.array([1, 2, 4, 8])).sum(-1)            # [T]
+    active = (mask > 0) & (mask < 15)
+    tet_v, tet_s, mask = tet_v[active], tet_s[active], mask[active]
+    tet_cell = tet_cell[active]
+    t = len(tet_s)
+    if t == 0:
+        empty = Mesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32))
+        return (empty, np.zeros((0,), np.int64)) if return_cell_ids else empty
+
+    # intersection points on all 6 tet edges
+    sa = tet_s[:, _TET_EDGES[:, 0]]
+    sb = tet_s[:, _TET_EDGES[:, 1]]
+    denom = sb - sa
+    frac = np.where(np.abs(denom) > 1e-12, -sa / np.where(denom == 0, 1, denom), 0.5)
+    frac = np.clip(frac, 0.0, 1.0)
+    va = tet_v[:, _TET_EDGES[:, 0]]
+    vb = tet_v[:, _TET_EDGES[:, 1]]
+    edge_pts = va + frac[..., None] * (vb - va)                 # [T, 6, 3]
+
+    tris = _TET_TABLE[mask]                                     # [T, 2, 3]
+    valid = tris[:, :, 0] >= 0                                  # [T, 2]
+    tri_edges = np.where(tris < 0, 0, tris)
+    tri_pts = np.take_along_axis(
+        edge_pts[:, None, :, :].repeat(2, axis=1),
+        tri_edges[..., None].repeat(3, axis=-1), axis=2)        # [T, 2, 3, 3]
+    tri_pts = tri_pts[valid]                                    # [K, 3, 3]
+    tri_cell = np.repeat(tet_cell[:, None], 2, axis=1)[valid]   # [K]
+
+    vertices = tri_pts.reshape(-1, 3).astype(np.float32)
+    faces = np.arange(len(vertices), dtype=np.int32).reshape(-1, 3)
+    mesh_out = Mesh(vertices, faces)
+    return (mesh_out, tri_cell) if return_cell_ids else mesh_out
+
+
+def laplacian_smooth(mesh: Mesh, iterations: int = 1,
+                     lam: float = 0.5) -> Mesh:
+    """Umbrella-operator Laplacian smoothing (the 1-iteration smooth in the
+    reference's post-processing, src/utils/o3d_helper.py:220-241)."""
+    v = mesh.vertices.astype(np.float64)
+    f = mesh.faces
+    if len(v) == 0 or len(f) == 0:
+        return mesh
+    edges = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], axis=0)
+    edges = np.concatenate([edges, edges[:, ::-1]], axis=0)
+    for _ in range(iterations):
+        acc = np.zeros_like(v)
+        cnt = np.zeros((len(v), 1))
+        np.add.at(acc, edges[:, 0], v[edges[:, 1]])
+        np.add.at(cnt, edges[:, 0], 1.0)
+        avg = acc / np.maximum(cnt, 1.0)
+        has = cnt[:, 0] > 0
+        v[has] = v[has] + lam * (avg[has] - v[has])
+    return Mesh(v.astype(np.float32), f, mesh.colors)
+
+
+def post_process_mesh(mesh: Mesh, vertex_threshold: float,
+                      smooth_iterations: int = 1) -> Mesh:
+    """Merge close vertices, drop degenerate faces, smooth — the equivalent
+    of o3d_helper.post_process_mesh (reference src/utils/o3d_helper.py:220-241:
+    merge @ voxel/4, cleanup, 1-iter smoothing)."""
+    out = merge_vertices(mesh, vertex_threshold)
+    return laplacian_smooth(out, smooth_iterations)
+
+
+def merge_vertices(mesh: Mesh, tol: float) -> Mesh:
+    """Weld vertices within ``tol`` (grid rounding) and drop degenerate faces
+    (open3d merge_close_vertices + cleanup in the reference)."""
+    if len(mesh.vertices) == 0:
+        return mesh
+    keys = np.round(mesh.vertices / max(tol, 1e-12)).astype(np.int64)
+    if np.abs(keys).max() < (1 << 20):
+        # rows packed into one int64 (coord_key3's layout) are ordered
+        # lexicographically, so a stable 1-D sort reproduces
+        # np.unique(axis=0)'s order and first-occurrence indices
+        k = coord_key3(keys)
+        order = np.argsort(k, kind="stable")
+        ks = k[order]
+        new_run = np.empty(len(ks), bool)
+        new_run[0] = True
+        np.not_equal(ks[1:], ks[:-1], out=new_run[1:])
+        uid = np.cumsum(new_run) - 1
+        inv = np.empty(len(k), np.int64)
+        inv[order] = uid
+        first_idx = order[new_run]
+    else:  # coordinates outside the packing range: row-unique fallback
+        _, first_idx, inv = np.unique(keys, axis=0, return_index=True,
+                                      return_inverse=True)
+        inv = inv.reshape(-1)
+    verts = mesh.vertices[first_idx]
+    colors = None if mesh.colors is None else mesh.colors[first_idx]
+    faces = inv[mesh.faces].astype(np.int32)
+    ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) &
+          (faces[:, 0] != faces[:, 2]))
+    return Mesh(verts.astype(np.float32), faces[ok], colors)
+
+
+# ---------------------------------------------------------------------------
+# Sparse-volume meshing
+# ---------------------------------------------------------------------------
+
+def coord_key3(a: np.ndarray) -> np.ndarray:
+    """[N, 3] integer coords -> lexicographic-order scalar int64 keys.
+
+    Dedup/membership via 1-D keys: np.unique(axis=0) views rows as a
+    structured dtype and sorts ~10x slower — on a 500k-voxel map the mesh
+    lattice has ~13M candidate points and the row-unique dominated
+    extraction (measured; RESULTS.md round 3).  Coordinates are bounded
+    well below +-2**20 voxels per axis."""
+    a = np.asarray(a, np.int64)
+    return (a[:, 0] + (1 << 20)) * (1 << 42) + \
+        (a[:, 1] + (1 << 20)) * (1 << 21) + (a[:, 2] + (1 << 20))
+
+
+def coord_unkey3(k: np.ndarray) -> np.ndarray:
+    out = np.empty((len(k), 3), np.int64)
+    out[:, 0] = (k >> 42) - (1 << 20)
+    out[:, 1] = ((k >> 21) & ((1 << 21) - 1)) - (1 << 20)
+    out[:, 2] = (k & ((1 << 21) - 1)) - (1 << 20)
+    return out
+
+
+def build_sample_lattice(active_coords: np.ndarray, scale: int = 2,
+                         use_native: bool = True):
+    """Active voxel coords -> dedup sub-voxel lattice sample points + cells.
+
+    The reference samples a 3x3x3 grid at half-voxel steps around every active
+    corner (sparse_volume.py:717-731) — ``scale=2``.  Higher scales sample
+    finer (scale=4 = quarter-voxel steps) over the same +-0.5 voxel block.
+    Shared points/cells between neighboring voxels are deduplicated.
+
+    ``use_native`` runs the C++ component (radix-sort dedup + merge-walk
+    corner lookup, bit-identical output); the numpy body below serves
+    ``use_native=False``.
+
+    Returns (points_lattice [P, 3] int64 in units of voxel/scale,
+    cell_corner_index [M, 8] int32 into points, cell_origins [M, 3] int64).
+    """
+    if use_native and len(active_coords):
+        from bnv_fusion_tpu_torch import native
+
+        return native.build_sample_lattice_native(active_coords, scale)
+    # coord_key3 is LINEAR in the coordinates, so neighbour keys are base
+    # key + a constant delta — the whole lattice builds from [N] int64 key
+    # arithmetic without ever materializing [N, 27, 3] coordinate tensors
+    # (the naive form spent seconds in astype/broadcast allocations and
+    # dominated mesh extraction; RESULTS.md round 3)
+    half = scale // 2
+    base = coord_key3(active_coords.astype(np.int64) * scale)     # [N]
+
+    def off_key(off):
+        o = np.asarray(off, np.int64)
+        return (o[..., 0] * (1 << 42) + o[..., 1] * (1 << 21) + o[..., 2])
+
+    def sort_unique(k):
+        # np.unique measured ~20x a plain np.sort at these sizes
+        k = np.sort(k)
+        if len(k) == 0:
+            return k
+        keep = np.empty(len(k), bool)
+        keep[0] = True
+        np.not_equal(k[1:], k[:-1], out=keep[1:])
+        return k[keep]
+
+    offs = np.arange(-half, half + 1, dtype=np.int64)
+    grid = np.stack(np.meshgrid(offs, offs, offs, indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+    sorted_keys = sort_unique(
+        (base[:, None] + off_key(grid)[None, :]).ravel())
+    points = coord_unkey3(sorted_keys)
+
+    cell_offs = np.arange(-half, half, dtype=np.int64)
+    cgrid = np.stack(np.meshgrid(cell_offs, cell_offs, cell_offs,
+                                 indexing="ij"), axis=-1).reshape(-1, 3)
+    cell_keys = sort_unique(
+        (base[:, None] + off_key(cgrid)[None, :]).ravel())
+
+    corner_idx = np.empty((len(cell_keys), 8), np.int64)
+    hit_all = np.ones((len(cell_keys),), bool)
+    for ci, corner in enumerate(_CUBE_CORNERS):
+        ck = cell_keys + off_key(np.asarray(corner))
+        pos = np.searchsorted(sorted_keys, ck)
+        pos = np.clip(pos, 0, len(sorted_keys) - 1)
+        hit = sorted_keys[pos] == ck
+        hit_all &= hit
+        corner_idx[:, ci] = pos
+    cells = coord_unkey3(cell_keys[hit_all])
+    return points, corner_idx[hit_all], cells
+
+
+def extract_mesh(decode_fn, active_coords: np.ndarray, min_coords: np.ndarray,
+                 voxel_size: float, batch_size: int = 262144,
+                 merge_tol_factor: float = 0.25, use_native: bool = True,
+                 mask_sentinel: bool = False,
+                 lattice_scale: int = 2) -> Optional[Mesh]:
+    """Decode the SDF on the sub-voxel lattice and run marching tetrahedra.
+
+    ``decode_fn(coords_f32 [B, 3]) -> sdf [B]`` (numpy in, numpy out)
+    evaluates the sparse volume at *voxel* coordinates; it is called with
+    fixed-size zero-padded batches.  With ``mask_sentinel``, NaN samples are
+    "no data": they interpolate as +voxel_size, but a cell meshes only if its
+    observed corners alone cross the level set.
+    """
+    if len(active_coords) == 0:
+        return None
+    points, corner_idx, cells = build_sample_lattice(
+        active_coords, lattice_scale, use_native=use_native)
+    coords = points.astype(np.float32) / lattice_scale
+    sdf = np.empty((len(points),), np.float32)
+    for s in range(0, len(points), batch_size):
+        e = min(s + batch_size, len(points))
+        batch = np.zeros((batch_size, 3), np.float32)
+        batch[: e - s] = coords[s:e]
+        sdf[s:e] = np.asarray(decode_fn(batch))[: e - s].astype(np.float32)
+
+    # weld tolerance in lattice units: lattice step = voxel_size / scale
+    lattice_tol = merge_tol_factor * lattice_scale
+    if use_native:
+        from bnv_fusion_tpu_torch import native
+
+        verts, faces = native.marching_tetrahedra_indexed_native(
+            cells, corner_idx, sdf, use_sentinel=mask_sentinel,
+            nan_fallback=voxel_size, weld_tol=lattice_tol)
+        if len(verts) == 0:
+            return None
+        verts = verts / lattice_scale * voxel_size + np.asarray(min_coords)
+        return Mesh(verts.astype(np.float32), faces)
+
+    cell_sdf = sdf[corner_idx]                                  # [M, 8]
+    if mask_sentinel:
+        observed = ~np.isnan(cell_sdf)
+        obs_min = np.where(observed, cell_sdf, np.inf).min(1)
+        obs_max = np.where(observed, cell_sdf, -np.inf).max(1)
+        crossing = (obs_min < 0) & (obs_max > 0)
+        cell_sdf = np.where(observed, cell_sdf, voxel_size)
+    else:
+        crossing = (cell_sdf.min(1) < 0) & (cell_sdf.max(1) > 0)
+    mesh = marching_tetrahedra(cells[crossing], cell_sdf[crossing])
+    if len(mesh.vertices) == 0:
+        return None
+    verts = mesh.vertices / lattice_scale * voxel_size + np.asarray(min_coords)
+    return merge_vertices(Mesh(verts.astype(np.float32), mesh.faces),
+                          voxel_size * merge_tol_factor)
+
+
+# ---------------------------------------------------------------------------
+# PLY IO (binary little-endian; trimesh replacement)
+# ---------------------------------------------------------------------------
+
+def save_ply(path: str, mesh: Mesh) -> None:
+    v, f = mesh.vertices.astype("<f4"), mesh.faces.astype("<i4")
+    c = mesh.colors
+    with open(path, "wb") as fh:
+        fh.write(b"ply\nformat binary_little_endian 1.0\n")
+        fh.write(f"element vertex {len(v)}\n".encode())
+        fh.write(b"property float x\nproperty float y\nproperty float z\n")
+        if c is not None:
+            fh.write(b"property uchar red\nproperty uchar green\n"
+                     b"property uchar blue\n")
+        fh.write(f"element face {len(f)}\n".encode())
+        fh.write(b"property list uchar int vertex_indices\nend_header\n")
+        if c is None:
+            fh.write(v.tobytes())
+        else:
+            xyz = v.view("u1").reshape(len(v), 12)
+            rgb = np.asarray(c, np.uint8).reshape(len(v), 3)
+            fh.write(np.concatenate([xyz, rgb], axis=1).tobytes())
+        counts = np.full((len(f), 1), 3, "u1")
+        rows = np.concatenate(
+            [counts.view("u1"), f.view("u1").reshape(len(f), 12)], axis=1)
+        fh.write(rows.tobytes())
+
+
+def load_ply(path: str) -> Mesh:
+    with open(path, "rb") as fh:
+        if fh.readline().strip() != b"ply":
+            raise ValueError("not a PLY file")
+        fmt = fh.readline().strip()
+        n_v = n_f = 0
+        props = []
+        cur = None
+        while True:
+            line = fh.readline().strip()
+            if line == b"end_header":
+                break
+            parts = line.split()
+            if parts[0] == b"element":
+                cur = parts[1]
+                if cur == b"vertex":
+                    n_v = int(parts[2])
+                elif cur == b"face":
+                    n_f = int(parts[2])
+            elif parts[0] == b"property" and cur == b"vertex":
+                props.append(parts[-1].decode())
+        colors = None
+        if b"binary_little_endian" in fmt:
+            n_rgb = sum(p in ("red", "green", "blue") for p in props)
+            n_flt = len(props) - n_rgb
+            stride = 4 * n_flt + n_rgb
+            raw_v = np.frombuffer(fh.read(n_v * stride), "u1")
+            raw_v = raw_v.reshape(n_v, stride)
+            verts = raw_v[:, :4 * n_flt].copy().view("<f4") \
+                .reshape(n_v, n_flt)[:, :3]
+            if n_rgb == 3:
+                colors = raw_v[:, 4 * n_flt:4 * n_flt + 3].copy()
+            raw = fh.read(n_f * 13)
+            rows = np.frombuffer(raw, "u1").reshape(n_f, 13)
+            faces = rows[:, 1:].copy().view("<i4").reshape(n_f, 3)
+        else:  # ascii
+            rows = [fh.readline().split() for _ in range(n_v)]
+            verts = np.array(rows, np.float32)[:, :3]
+            faces = np.array([fh.readline().split()[1:4] for _ in range(n_f)],
+                             np.int32)
+    return Mesh(verts.astype(np.float32), faces.astype(np.int32), colors)
+
+
+# ---------------------------------------------------------------------------
+# Surface sampling (trimesh.sample.sample_surface replacement)
+# ---------------------------------------------------------------------------
+
+def sample_surface(mesh: Mesh, n: int, seed: int = 0) -> np.ndarray:
+    """Area-weighted uniform surface samples [n, 3]."""
+    rng = np.random.RandomState(seed)
+    v, f = mesh.vertices, mesh.faces
+    a = v[f[:, 0]]
+    ab = v[f[:, 1]] - a
+    ac = v[f[:, 2]] - a
+    areas = 0.5 * np.linalg.norm(np.cross(ab, ac), axis=-1)
+    total = areas.sum()
+    if total <= 0:
+        raise ValueError("mesh has zero surface area")
+    probs = areas / total
+    tri = rng.choice(len(f), size=n, p=probs)
+    r1 = np.sqrt(rng.rand(n, 1))
+    r2 = rng.rand(n, 1)
+    return (a[tri] * (1 - r1) + (a + ab)[tri] * (r1 * (1 - r2)) +
+            (a + ac)[tri] * (r1 * r2)).astype(np.float32)

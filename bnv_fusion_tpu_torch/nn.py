@@ -1,0 +1,104 @@
+"""Neural nets: PointNet local-shape encoder and the tiny SDF decoder MLP.
+
+Counterpart of bnv_fusion_tpu/nn.py:31-133.  Parameters are plain dicts of
+``w``/``b`` tensors (``w`` stored [in, out]), the same layout as the JAX
+package's pytrees, so ``params_from_numpy`` moves weights between the two
+packages unchanged.  Only float32 compute is supported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Apply a ReLU MLP stored as {w0,b0,...,w_out,b_out} (no final ReLU)."""
+    n_hidden = sum(1 for k in params if k.startswith("w") and k != "w_out")
+    h = x
+    for i in range(n_hidden):
+        h = torch.relu(h @ params[f"w{i}"] + params[f"b{i}"])
+    return h @ params["w_out"] + params["b_out"]
+
+
+def positional_encoding(x: torch.Tensor, num_fns: int = 1,
+                        include_input: bool = True,
+                        log_sampling: bool = True) -> torch.Tensor:
+    """NeRF sin/cos encoding: with num_fns=1 a 3-vector maps to 9 dims
+    [x, sin(x), cos(x)]."""
+    outs = [x] if include_input else []
+    if log_sampling:
+        freqs = 2.0 ** np.linspace(0.0, num_fns - 1, num_fns)
+    else:
+        freqs = np.linspace(2.0 ** 0.0, 2.0 ** (num_fns - 1), num_fns)
+    for f in freqs:
+        outs.append(torch.sin(x * float(f)))
+        outs.append(torch.cos(x * float(f)))
+    return torch.cat(outs, dim=-1)
+
+
+def encoder_apply(params: Dict[str, Any], pts6: torch.Tensor) -> torch.Tensor:
+    """PointNet per-point features: [..., 6] -> [..., feat_dims].
+
+    The first three channels are the point's offset from the voxel corner in
+    voxel units, the last three the world-frame unit normal."""
+    return mlp_apply(params["encoder"], pts6)
+
+
+def decoder_apply(params: Dict[str, Any], local_xyz: torch.Tensor,
+                  feats: torch.Tensor, num_pe_fns: int = 1) -> torch.Tensor:
+    """SDF decoder: (local offset in voxel units, latent) -> raw SDF [..., 1].
+
+    The raw output is normalized; callers multiply by voxel_size."""
+    pe = positional_encoding(local_xyz, num_fns=num_pe_fns)
+    return mlp_apply(params["decoder"], torch.cat([pe, feats.to(pe.dtype)], -1))
+
+
+def _init_mlp(rs: np.random.RandomState, dims,
+              bias_std: float) -> Dict[str, np.ndarray]:
+    params = {}
+    n = len(dims) - 1
+    for i in range(n):
+        s = float(np.sqrt(2.0 / dims[i]))
+        name, bname = (f"w{i}", f"b{i}") if i < n - 1 else ("w_out", "b_out")
+        params[name] = (rs.standard_normal((dims[i], dims[i + 1])) * s
+                        ).astype(np.float32)
+        params[bname] = np.zeros((dims[i + 1],), np.float32)
+    if bias_std > 0:     # no draws at 0, so zero-bias weights keep their bits
+        for k in params:
+            if k.startswith("b"):
+                params[k] = (rs.standard_normal(params[k].shape) * bias_std
+                             ).astype(np.float32)
+    return params
+
+
+def init_model(seed: int = 0, feat_dims: int = 8, hidden: int = 64,
+               n_hidden: int = 3, num_pe_fns: int = 1,
+               device: torch.device | str = "cpu",
+               bias_std: float = 0.0) -> Dict[str, Any]:
+    """Fresh (untrained) encoder+decoder params with the tcnn-sized topology.
+
+    He-normal weights and zero biases, the shapes and distributions of the
+    JAX package's init_model, drawn from ``numpy.random.RandomState(seed)``
+    (the bits differ from JAX's PRNG).  ``bias_std > 0`` draws the biases
+    from N(0, bias_std^2) instead, so that checks of the decode see biases
+    as trained weights have them."""
+    rs = np.random.RandomState(seed)
+    pe_dims = 3 + 2 * 3 * num_pe_fns
+    tree = {
+        "encoder": _init_mlp(rs, [6] + [hidden] * n_hidden + [feat_dims],
+                             bias_std),
+        "decoder": _init_mlp(rs, [pe_dims + feat_dims] + [hidden] * n_hidden
+                             + [1], bias_std),
+    }
+    return params_from_numpy(tree, device)
+
+
+def params_from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
+    """Nested dict of numpy arrays (e.g. the JAX parameter pytree after
+    ``jax.tree.map(np.asarray, ...)``) -> the same dict of float32 tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, np.float32), device=device)

@@ -1,0 +1,494 @@
+"""NeuralMap: the online bi-level fusion pipeline (integrate / optimize / mesh).
+
+Counterpart of bnv_fusion_tpu/pipeline.py:36-1396 and :1498-1515, limited to
+one device, the dense slot-map table and the dense TSDF prior.  PyTorch runs
+eagerly, so the JAX package's jit caches have no counterpart.  The device
+comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
+"the accelerator") and ``cuda`` select CUDA and raise where there is none;
+``cpu`` is for tests.  Options this port does not implement yet raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from bnv_fusion_tpu_torch import checkpoint as ckpt_io
+from bnv_fusion_tpu_torch import fusion, geometry, mesh as mesh_mod
+from bnv_fusion_tpu_torch import nn as bnn
+from bnv_fusion_tpu_torch import optimize, tsdf
+from bnv_fusion_tpu_torch import tables as tbl
+from bnv_fusion_tpu_torch import voxel as vx
+
+
+def resolve_device(device_type) -> torch.device:
+    """Config ``device_type`` -> torch device (tpu/cuda/gpu = CUDA)."""
+    dt = str(device_type).lower()
+    if dt in ("tpu", "cuda", "gpu"):
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device_type={device_type} asks for the "
+                               "accelerator, but CUDA is not available")
+        return torch.device("cuda")
+    if dt == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"unknown device_type {device_type!r} (tpu|cuda|cpu)")
+
+
+def check_supported(config) -> None:
+    """Raise NotImplementedError for every option value this slice of the
+    port does not implement (nothing diverges silently)."""
+    m, t = config.model, config.trainer
+
+    def refuse(what, item):
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+    if str(getattr(m, "mode", "eval")) == "demo":
+        refuse("model.mode=demo (incremental meshing)", 11)
+    if str(getattr(m, "table_layout", "auto")) != "auto":
+        refuse(f"model.table_layout={m.table_layout}", 14)
+    if str(getattr(m, "tsdf_layout", "auto")) == "blocks":
+        refuse("model.tsdf_layout=blocks", 13)
+    for name in ("fuse_devices", "optimize_devices", "pretrain_devices"):
+        v = str(getattr(t, name, 1))
+        if v in ("all", "0") or int(v) > 1:
+            refuse(f"trainer.{name}={v}", 14)
+    for name in ("max_unique_per_frame", "max_unique_cells_per_frame",
+                 "max_unique_per_batch"):
+        if str(getattr(m, name, None)).lower() == "auto":
+            refuse(f"model.{name}=auto", 5)
+    if bool(getattr(m, "fuse_color", False)):
+        refuse("model.fuse_color", 6)
+    if bool(getattr(m, "error_guided_sampling", False)):
+        refuse("model.error_guided_sampling", 12)
+    if bool(getattr(t, "optim_early_stop", False)):
+        refuse("trainer.optim_early_stop", 9)
+    for name in ("decode_layout", "mesh_decode_layout"):
+        if str(getattr(m, name, "rows")) == "fm":
+            refuse(f"model.{name}=fm", 8)
+    if int(getattr(m, "fuse_front_chunks", 1)) > 1:
+        refuse("model.fuse_front_chunks>1", 5)
+    if bool(getattr(m, "fuse_sort1_gather", False)):
+        refuse("model.fuse_sort1_gather", 5)
+    if str(getattr(m, "fuse_algorithm", "cell")) != "cell":
+        refuse(f"model.fuse_algorithm={m.fuse_algorithm}", 5)
+    if not bool(getattr(m, "fuse_batch_merge", True)):
+        refuse("model.fuse_batch_merge=false", 5)
+    for name in ("fuse_dtype", "optim_dtype"):
+        if str(getattr(m, name, "float32")) != "float32":
+            refuse(f"model.{name}={getattr(m, name)}", 9)
+    if int(getattr(t, "live_viewer_port", 0) or 0):
+        refuse("trainer.live_viewer_port", 11)
+
+
+class Timer:
+    """Accumulating phase timer; ``sync`` (e.g. torch.cuda.synchronize)
+    runs before each reading so device work is counted where it ran."""
+
+    def __init__(self, names, sync=None):
+        self.times = {n: 0.0 for n in names}
+        self._start: Dict[str, float] = {}
+        self._sync = sync or (lambda: None)
+
+    def start(self, name):
+        self._sync()
+        self._start[name] = time.time()
+
+    def log(self, name):
+        self._sync()
+        self.times[name] += time.time() - self._start.pop(name)
+
+
+def _frame_points(depth, T_wc, intr):
+    """Back-project one raw frame to oriented world points [H*W, 3].
+
+    The camera-facing normals are negated: the pretrained encoder's decoded
+    SDF is positive opposite the input normal, and the pipeline needs SDF
+    positive on the camera side (the reference carries the same flip)."""
+    xyz_cam = geometry.depth_to_xyz(depth, intr)
+    valid = (depth > 0).reshape(-1)
+    normals_cam = geometry.normals_from_depth(depth, intr, mask=depth > 0)
+    pts_w = geometry.transform_points(T_wc, xyz_cam.reshape(-1, 3))
+    normals_w = -geometry.rotate_vectors(T_wc, normals_cam.reshape(-1, 3))
+    return pts_w, normals_w, valid
+
+
+class NeuralMap:
+    def __init__(self, dimensions: np.ndarray, config, params: Dict[str, Any],
+                 working_dir: str = ".", capacity: Optional[int] = None):
+        check_supported(config)
+        m = config.model
+        self.config = config
+        self.device = resolve_device(getattr(config, "device_type", "tpu"))
+        self.params = bnn.params_from_numpy(
+            _to_numpy_tree(params), self.device)
+        self.working_dir = working_dir
+        self.voxel_size = float(m.voxel_size)
+        self.feat_dims = int(m.feature_vector_size)
+        self.min_pts_in_grid = int(m.min_pts_in_grid)
+        self.ray_max_dist = float(m.ray_tracer.ray_max_dist)
+        self.truncated_units = int(m.ray_tracer.truncated_units)
+        self.truncated_dist = min(
+            self.truncated_units * self.voxel_size * 0.5, 0.1)
+        self.sdf_delta_weight = float(m.sdf_delta_weight)
+        self.train_ray_splits = int(m.train_ray_splits)
+        self.sampling_size = int(config.dataset.num_pixels)
+        self.dimensions = np.asarray(dimensions, np.float32)
+
+        min_c, max_c, n_xyz = vx.get_world_range(self.dimensions,
+                                                 self.voxel_size)
+        self.bound_min = torch.as_tensor(min_c, device=self.device)
+        self.bound_max = torch.as_tensor(max_c, device=self.device)
+        self.n_xyz = tuple(int(v) for v in n_xyz)
+        if capacity is None:
+            capacity = int(getattr(m, "table_capacity", 1 << 21))
+        self.table = tbl.create_table(self.feat_dims, capacity,
+                                      n_xyz=self.n_xyz, device=self.device)
+
+        self.tsdf_voxel_size = float(getattr(m, "tsdf_voxel_size", 0.025))
+        min_c2, max_c2, _ = vx.get_world_range(self.dimensions,
+                                               self.tsdf_voxel_size)
+        prior_vox = int(np.prod(np.ceil(
+            (max_c2 - min_c2) / self.tsdf_voxel_size)))
+        if str(getattr(m, "tsdf_layout", "auto")) == "auto" and \
+                prior_vox >= 8_000_000:
+            raise NotImplementedError(
+                f"a prior grid of {prior_vox} voxels routes to the block-major "
+                "TSDF volume, which is not ported yet (ROADMAP Queue 1 item 13)")
+        self.tsdf_vol, _ = tsdf.create_tsdf_volume(
+            self.dimensions, self.tsdf_voxel_size, device=self.device)
+
+        mu = getattr(m, "max_unique_per_frame", 1 << 17)
+        muc = getattr(m, "max_unique_cells_per_frame", None)
+        self._widths = (int(mu), int(muc) if muc else None)
+        mub = getattr(m, "max_unique_per_batch", None)
+        self._mu_batch = int(mub) if mub else None
+
+        self.frames: List[Dict[str, Any]] = []
+        self._window: Optional[tuple] = None
+        self._window_intr: Optional[np.ndarray] = None
+        self._window_built = False
+        self.generator = torch.Generator().manual_seed(
+            int(getattr(config.trainer, "seed", 0)))
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else None)
+        self.timer = Timer(["local", "global", "mesh"], sync=sync)
+        self.optimize_losses: List[float] = []
+        self._optim_step = None
+        self._optim_lr = None
+
+    # ------------------------------------------------------------------
+    # local fusion
+    # ------------------------------------------------------------------
+
+    def _width_values(self) -> tuple:
+        """(max_unique_per_frame, max_unique_cells_per_frame)."""
+        return self._widths
+
+    def _tsdf_window_for(self, frame) -> tuple | None:
+        """Frustum window for the TSDF prior when it pays (the frustum
+        covers < 70% of the prior grid), sized from this frame's
+        intrinsics; ``_check_window_intr`` guards later frames."""
+        if frame is None or not bool(getattr(self.config.model,
+                                             "tsdf_frustum_window", True)):
+            return None
+        intr = np.asarray(frame["intr_mat"], np.float32)
+        hw = np.asarray(frame["depth"]).shape
+        shape = tuple(self.tsdf_vol.sdf.shape)
+        window = tsdf.frustum_window_shape(intr, hw, self.ray_max_dist,
+                                           self.tsdf_voxel_size, shape)
+        if np.prod(window) >= 0.7 * np.prod(shape):
+            return None
+        self._window_intr = intr
+        return window
+
+    def _check_window_intr(self, frames):
+        """Drop the frustum window if intrinsics drift from the ones it was
+        sized for."""
+        if self._window_intr is None:
+            return
+        for f in frames:
+            intr = np.asarray(f["intr_mat"], np.float32)
+            if np.abs(intr - self._window_intr).max() > \
+                    1e-2 * max(self._window_intr[0, 0],
+                               self._window_intr[1, 1]):
+                self._window_intr = None
+                self._window = None
+                return
+
+    def _ensure_window(self, frame0):
+        if not self._window_built:
+            self._window = self._tsdf_window_for(frame0)
+            self._window_built = True
+
+    def _integrate_prior(self, depth, T_wc, intr, obs_weight: float = 1.0):
+        if self._window is not None:
+            tsdf.integrate_windowed(self.tsdf_vol, depth, intr, T_wc,
+                                    self.tsdf_voxel_size, self._window,
+                                    self.ray_max_dist, obs_weight=obs_weight)
+        else:
+            tsdf.integrate(self.tsdf_vol, depth, intr, T_wc,
+                           self.tsdf_voxel_size, obs_weight=obs_weight)
+
+    @property
+    def overflow(self) -> int:
+        """Voxels/cells dropped by the static compaction widths (0 = every
+        observation landed)."""
+        return int(self.table.overflow)
+
+    def _tensor(self, a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def integrate(self, frame: Dict[str, Any]):
+        """Fuse one frame and keep its depth + pose for the optimization ray
+        pool.  Frames with NaN poses are skipped."""
+        if np.any(np.isnan(np.asarray(frame["T_wc"]))):
+            return None
+        self._check_window_intr([frame])
+        self._ensure_window(frame)
+        depth = self._tensor(frame["depth"])
+        T_wc = self._tensor(frame["T_wc"])
+        intr = self._tensor(frame["intr_mat"])
+        max_unique, mu_cells = self._width_values()
+        pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
+        fusion.fuse_frame_cellsort(
+            self.table, self.params, pts_w, normals_w, valid, self.bound_min,
+            self.bound_max, self.voxel_size, self.min_pts_in_grid,
+            max_unique=max_unique, max_unique_cells=mu_cells)
+        self._integrate_prior(depth, T_wc, intr)
+        self.frames.append({"depth": depth, "T_wc": T_wc, "intr": intr,
+                            "frame_id": frame.get("frame_id")})
+
+    def _stack_batch(self, keep: List[Dict[str, Any]]):
+        """Host numpy stacking of a frame batch (uint16 raw depth when every
+        frame carries it)."""
+        out = {}
+        if all(f.get("depth_raw") is not None for f in keep):
+            scales = {float(f.get("depth_scale", 1000.0)) for f in keep}
+            if len(scales) != 1:
+                raise ValueError("mixed depth_scale within one batch")
+            out["raw"] = np.stack(
+                [np.asarray(f["depth_raw"], np.uint16) for f in keep])
+            out["scale"] = next(iter(scales))
+        else:
+            out["depth"] = np.stack(
+                [np.asarray(f["depth"], np.float32) for f in keep])
+        out["T_wc"] = np.stack([np.asarray(f["T_wc"], np.float32) for f in keep])
+        out["intr"] = np.stack(
+            [np.asarray(f["intr_mat"], np.float32) for f in keep])
+        return out
+
+    def _convert_raw_depth(self, raw: np.ndarray, scale: float) -> torch.Tensor:
+        """uint16 sensor depth -> metric f32 on the device (/scale, zero at
+        >= max_depth)."""
+        d = self._tensor(raw.astype(np.int32), torch.int32).to(torch.float32) \
+            / float(np.float32(scale))
+        return torch.where(d < self.ray_max_dist, d,
+                           torch.zeros((), device=self.device))
+
+    def _seg_kernel(self):
+        """model.use_seg_reduce_kernel: auto = the batched kernel path on
+        CUDA and the per-frame cumsum path on CPU; interpret = the batched
+        path with the plain seg-reduce; true/false force it."""
+        sk = str(getattr(self.config.model, "use_seg_reduce_kernel",
+                         "auto")).lower()
+        if sk == "auto":
+            return self.device.type == "cuda"
+        if sk == "interpret":
+            return "interpret"
+        return sk in ("true", "1")
+
+    def integrate_batch(self, frames: List[Dict[str, Any]]):
+        """Fuse K frames with one table update (fusion.fuse_frames_merged);
+        the TSDF prior takes every ``model.tsdf_every``-th frame at
+        obs_weight = tsdf_every."""
+        keep = [f for f in frames
+                if not np.any(np.isnan(np.asarray(f["T_wc"])))]
+        if not keep:
+            return
+        self._check_window_intr(keep)
+        self._ensure_window(keep[0])
+        m = self.config.model
+        staged = self._stack_batch(keep)
+        if "raw" in staged:
+            depths = self._convert_raw_depth(staged["raw"], staged["scale"])
+        else:
+            depths = self._tensor(staged["depth"])
+        T_wcs = self._tensor(staged["T_wc"])
+        intrs = self._tensor(staged["intr"])
+        pts = [_frame_points(d, t, i) for d, t, i in zip(depths, T_wcs, intrs)]
+        pts_w, normals_w, valid = (torch.stack([p[j] for p in pts])
+                                   for j in range(3))
+        del pts
+        max_unique, mu_cells = self._width_values()
+        fusion.fuse_frames_merged(
+            self.table, self.params, pts_w, normals_w, valid, self.bound_min,
+            self.bound_max, self.voxel_size, self.min_pts_in_grid,
+            max_unique=max_unique, max_unique_cells=mu_cells,
+            max_unique_batch=self._mu_batch, seg_kernel=self._seg_kernel(),
+            sort_bf16=bool(getattr(m, "fuse_sort_bf16", False)))
+        del pts_w, normals_w, valid
+        every = int(getattr(m, "tsdf_every", 1))
+        for j in range(0, len(keep), every):
+            self._integrate_prior(depths[j], T_wcs[j], intrs[j],
+                                  obs_weight=float(every))
+        for f, d, t, i in zip(keep, depths, T_wcs, intrs):
+            self.frames.append({"depth": d, "T_wc": t, "intr": i,
+                                "frame_id": f.get("frame_id")})
+
+    # ------------------------------------------------------------------
+    # global fusion
+    # ------------------------------------------------------------------
+
+    def optimize(self, n_iters: int, last_frame: int = -1, lr: float = 1e-3,
+                 frame_order: str | None = None):
+        """Render-loss optimization of the latents (Adam on the table's
+        features, count_optim bumps on its weights), written back to the
+        table at the end.  ``frame_order``: "random" draws frames i.i.d.,
+        "epoch" sweeps the pool in order; None reads
+        ``trainer.optim_frame_order``.  Per-iteration losses land in
+        ``self.optimize_losses``."""
+        if not self.frames:
+            return
+        m = self.config.model
+        if frame_order is None:
+            frame_order = str(getattr(self.config.trainer,
+                                      "optim_frame_order", "random"))
+        if self._optim_step is None or self._optim_lr != lr:
+            self._optim_lr = lr
+            self._optim_step = optimize.make_optimize_step(
+                self.params, voxel_size=self.voxel_size,
+                min_pts_in_grid=self.min_pts_in_grid,
+                truncated_units=self.truncated_units,
+                truncated_dist=self.truncated_dist,
+                ray_max_dist=self.ray_max_dist, n_rays=self.sampling_size,
+                train_ray_splits=self.train_ray_splits, lr=lr,
+                neighbor_kernel=int(getattr(m, "neighbor_kernel", 3)),
+                parallel_chunks=bool(getattr(m, "parallel_ray_chunks", False)),
+                n_fine=int(getattr(m.ray_tracer, "n_fine", 0) or 0),
+                n_coarse=int(getattr(m.ray_tracer, "n_coarse", 0) or 0),
+                grad_scatter=str(getattr(m, "grad_scatter", "sortreduce")))
+        sdf_delta = tsdf.prepare_sdf_delta(
+            self.tsdf_vol, self.tsdf_voxel_size, self.truncated_dist,
+            self.sdf_delta_weight)
+        state = optimize.init_optim_state(self.table)
+        lo = 0 if last_frame < 0 else max(0, last_frame)
+        frame_pool = self.frames[lo:]
+        group = int(getattr(m, "optim_iters_per_launch", 4))
+        rng = np.random.RandomState(int(torch.randint(
+            0, 2 ** 31 - 1, (1,), generator=self.generator)))
+        lr_scales = self._optim_lr_scales(n_iters)
+        losses = []
+        done = 0
+        while done < int(n_iters):
+            k = min(group, int(n_iters) - done)
+            if frame_order == "epoch":
+                fis = (done + np.arange(k)) % len(frame_pool)
+            else:
+                fis = rng.randint(0, len(frame_pool), size=k)
+            for j, fi in enumerate(fis):
+                f = frame_pool[fi]
+                state, loss = self._optim_step(
+                    state, self.table, f["depth"], f["T_wc"], f["intr"],
+                    self.bound_min, self.n_xyz, sdf_delta,
+                    generator=self.generator,
+                    lr_scale=float(lr_scales[done + j]))
+                losses.append(loss)
+            done += k
+        self.last_optimize_iters = done
+        self.optimize_losses = torch.stack(losses).cpu().tolist()
+        self.table.features = state.features
+        self.table.weights = state.weights
+
+    def _optim_lr_scales(self, n_iters: int) -> np.ndarray:
+        """Per-iteration lr multipliers (``trainer.optim_lr_schedule``):
+        const, or cosine/linear decay to ``optim_lr_end_frac``."""
+        sched = str(getattr(self.config.trainer, "optim_lr_schedule", "const"))
+        n = max(int(n_iters), 1)
+        if sched == "const":
+            return np.ones(n, np.float32)
+        end = float(getattr(self.config.trainer, "optim_lr_end_frac", 0.1))
+        t = np.arange(n, dtype=np.float32) / max(n - 1, 1)
+        if sched == "cosine":
+            s = end + (1.0 - end) * 0.5 * (1.0 + np.cos(np.pi * t))
+        elif sched == "linear":
+            s = 1.0 + (end - 1.0) * t
+        else:
+            raise ValueError(f"unknown trainer.optim_lr_schedule: {sched!r} "
+                             "(const | cosine | linear)")
+        return s.astype(np.float32)
+
+    # ------------------------------------------------------------------
+    # meshing / io
+    # ------------------------------------------------------------------
+
+    def extract_mesh(self, use_delta: bool = True,
+                     batch_size: int | None = None
+                     ) -> Optional[mesh_mod.Mesh]:
+        """Decode the SDF on the half-voxel lattice of the voxels with real
+        fusion weight (and, with ``model.mesh_require_observation``, a fused
+        observation) and run marching tetrahedra on the host.  With
+        ``model.use_fused_decode_kernel`` on CUDA the lattice decode runs in
+        the fused decode kernel."""
+        m = self.config.model
+        if batch_size is None:
+            batch_size = int(getattr(m, "mesh_decode_batch", 1 << 18))
+        use_fused = (self.device.type != "cpu" and
+                     bool(getattr(m, "use_fused_decode_kernel", False)))
+        fetch_dt = {"float32": torch.float32, "float16": torch.float16,
+                    "bfloat16": torch.bfloat16}[
+            str(getattr(m, "mesh_fetch_dtype", "float32"))]
+        sdf_delta = tsdf.prepare_sdf_delta(
+            self.tsdf_vol, self.tsdf_voxel_size, self.truncated_dist,
+            self.sdf_delta_weight)
+        keys, _, weights, hits, _ = tbl.active_entries(self.table,
+                                                       with_features=False)
+        gate = weights >= self.min_pts_in_grid
+        if bool(getattr(m, "mesh_require_observation", False)):
+            gate &= hits > 0
+        active = keys[gate]
+        if len(active) == 0:
+            return None
+
+        def decode_fn(batch: np.ndarray) -> np.ndarray:
+            coords = torch.as_tensor(batch, device=self.device)
+            with torch.no_grad():
+                out = fusion.decode_points(
+                    self.table.features, self.table, self.params, coords,
+                    self.bound_min, self.voxel_size, self.min_pts_in_grid,
+                    sdf_delta=sdf_delta if use_delta else None,
+                    n_xyz=self.n_xyz, is_coords=True,
+                    use_fused_kernel=use_fused, masked_fill=float("nan"))
+            return out.to(fetch_dt).to(torch.float32).cpu().numpy()
+
+        return mesh_mod.extract_mesh(
+            decode_fn, active.astype(np.int32), self.bound_min.cpu().numpy(),
+            self.voxel_size, batch_size=batch_size, mask_sentinel=True,
+            lattice_scale=int(getattr(m, "mesh_lattice_scale", 2)))
+
+    def save(self, path_prefix: str):
+        """``<prefix>_sparse_volume.npz`` (the JAX package's format) and
+        ``<prefix>_tsdf.npy`` (metric prior)."""
+        keys, feats, weights, hits, _ = tbl.active_entries(self.table)
+        ckpt_io.save_state(path_prefix + "_sparse_volume.npz", {
+            "active_coordinates": keys,
+            "features": feats,
+            "weights": weights,
+            "num_hits": hits,
+            "dimensions": self.dimensions,
+            "voxel_size": np.float32(self.voxel_size),
+        })
+        np.save(path_prefix + "_tsdf.npy",
+                self.tsdf_vol.sdf.cpu().numpy() * (self.tsdf_voxel_size * 5))
+
+
+def _to_numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)

@@ -1,0 +1,164 @@
+"""Differentiable SDF rendering along camera rays + the fusion loss.
+
+Counterpart of bnv_fusion_tpu/render.py:21-262.  Randomness is explicit: the
+sampling functions take their uniforms as tensors, drawn by
+``draw_sampling_uniforms`` from a ``torch.Generator`` (or injected by a test
+from the JAX package's draws).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bnv_fusion_tpu_torch import fusion, geometry
+
+
+class Rays(NamedTuple):
+    """One batch of supervision rays."""
+
+    uv: torch.Tensor              # [N, 2] float32 pixel coords
+    gt_pts: torch.Tensor          # [N, 3] world surface points
+    mask: torch.Tensor            # [N] float32 validity
+    neighbor_pts: torch.Tensor    # [N, K, 3] pixel-window world points
+    neighbor_masks: torch.Tensor  # [N, K] float32
+    T_wc: torch.Tensor            # [4, 4]
+    intr: torch.Tensor            # [3, 3]
+
+
+def _linspace01(n: int, device) -> torch.Tensor:
+    """linspace(0, 1, n) with the values jnp.linspace gives (i * step, last
+    element exactly 1)."""
+    step = np.float32(1.0 / (n - 1)) if n > 1 else np.float32(0.0)
+    out = torch.arange(n, dtype=torch.float32, device=device) * float(step)
+    if n > 1:
+        out[-1] = 1.0
+    return out
+
+
+def stratified_sampling(n_samples: int, distances: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+    """Stratified distances in [0, d] per ray: [N, 1] -> [N, S, 1]; ``t``
+    [N, S] uniforms jitter each sample inside its mid-point interval."""
+    ticks = _linspace01(n_samples, distances.device)[None, :] * distances
+    mids = 0.5 * (ticks[:, 1:] + ticks[:, :-1])
+    upper = torch.cat([mids, ticks[:, -1:]], dim=-1)
+    lower = torch.cat([ticks[:, :1], mids], dim=-1)
+    return (lower + (upper - lower) * t)[..., None]
+
+
+def draw_sampling_uniforms(generator: torch.Generator, n_rays: int,
+                           n_fine: int, n_coarse: int,
+                           device: torch.device | str = "cpu"):
+    """The (fine, coarse) jitter uniforms hierarchical_sampling consumes,
+    drawn from ``generator`` on its own device and moved to ``device``."""
+    t_fine = torch.rand((n_rays, n_fine), generator=generator)
+    t_coarse = torch.rand((n_rays, n_coarse), generator=generator)
+    return t_fine.to(device), t_coarse.to(device)
+
+
+def hierarchical_sampling(n_fine: int, n_coarse: int, depths: torch.Tensor,
+                          surface: torch.Tensor, ray_dirs: torch.Tensor,
+                          cam_loc: torch.Tensor, offset_distance: float,
+                          ts: Tuple[torch.Tensor, torch.Tensor]):
+    """Fine samples in a +-offset band around the surface + coarse samples
+    from the camera, merged sorted.  depths [N], surface [N, 3]; ``ts`` =
+    (fine [N, n_fine], coarse [N, n_coarse]) uniforms.  Returns (pts
+    [N, S, 3], dists [N, S, 1])."""
+    t_fine, t_coarse = ts
+    negative_offset = torch.where(depths - offset_distance < 0, depths,
+                                  torch.full_like(depths, offset_distance))
+    start_pts = surface - negative_offset[:, None] * ray_dirs
+    start_depths = torch.linalg.norm(start_pts - cam_loc[None, :], dim=-1)
+    fine = stratified_sampling(
+        n_fine, torch.full_like(depths, 2.0 * offset_distance)[:, None], t_fine)
+    fine = fine + start_depths[:, None, None]
+    coarse = stratified_sampling(n_coarse, depths[:, None], t_coarse)
+    dists = torch.sort(torch.cat([fine, coarse], dim=1), dim=1).values
+    pts = cam_loc[None, None, :] + dists * ray_dirs[:, None, :]
+    return pts, dists
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF importance sampling along rays: bins [N, B], weights
+    [N, B-1] -> samples [N, n_samples].  ``u`` [N, n_samples] uniforms;
+    None = deterministic linspace(0, 1)."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    n = cdf.shape[0]
+    if u is None:
+        u = _linspace01(n_samples, cdf.device).expand(n, n_samples)
+    idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(idx - 1, min=0)
+    above = torch.clamp(idx, max=cdf.shape[-1] - 1)
+    cdf_lo = torch.gather(cdf, -1, below)
+    cdf_hi = torch.gather(cdf, -1, above)
+    nb = bins.shape[-1] - 1
+    bins_lo = torch.gather(bins, -1, torch.clamp(below, max=nb))
+    bins_hi = torch.gather(bins, -1, torch.clamp(above, max=nb))
+    denom = torch.where(cdf_hi - cdf_lo < 1e-5, torch.ones_like(cdf_hi),
+                        cdf_hi - cdf_lo)
+    return bins_lo + (u - cdf_lo) / denom * (bins_hi - bins_lo)
+
+
+def prepare_render(table, rays: Rays, bound_min, voxel_size: float,
+                   truncated_units: int, truncated_dist: float,
+                   ray_max_dist: float, sdf_delta: Optional[torch.Tensor],
+                   n_xyz, ts: Tuple[torch.Tensor, torch.Tensor],
+                   n_fine: int = 0, n_coarse: int = 0,
+                   weights: Optional[torch.Tensor] = None):
+    """Feature-independent half of rendering: sampling + decode prep.
+    ``n_fine`` / ``n_coarse`` = 0 keep the reference formula (fine =
+    2 * truncated_units, coarse = 5 * ray_max_dist).  Returns (prep, pts,
+    cam_loc)."""
+    ray_dirs, cam_loc = geometry.get_camera_rays(rays.uv, rays.T_wc, rays.intr)
+    gt_depths = torch.linalg.norm(rays.gt_pts - cam_loc[None, :], dim=-1)
+    pts, _ = hierarchical_sampling(
+        n_fine or truncated_units * 2, n_coarse or int(ray_max_dist * 5),
+        gt_depths, rays.gt_pts, ray_dirs, cam_loc,
+        offset_distance=truncated_dist, ts=ts)
+    n, s = pts.shape[:2]
+    prep = fusion.decode_prepare(table, pts.reshape(n * s, 3), bound_min,
+                                 voxel_size, sdf_delta=sdf_delta, n_xyz=n_xyz,
+                                 weights=weights)
+    return prep, pts, cam_loc
+
+
+def compute_sdf_loss(rays: Rays, pred_sdf: torch.Tensor,
+                     pred_pts: torch.Tensor, cam_loc: torch.Tensor,
+                     truncated_dist: float) -> torch.Tensor:
+    """Neighbourhood-corrected truncated L1 SDF loss, masked mean over
+    rays."""
+    gt_depths = torch.linalg.norm(rays.gt_pts - cam_loc[None, :], dim=-1,
+                                  keepdim=True)
+    depths = torch.linalg.norm(pred_pts - cam_loc[None, None, :], dim=-1)
+    gt_sdf = torch.clamp(gt_depths - depths, -truncated_dist, truncated_dist)
+    valid_map = gt_sdf > max(-truncated_dist * 0.5, -0.05)
+    d = torch.linalg.norm(
+        rays.neighbor_pts[:, None, :, :] - pred_pts[:, :, None, :], dim=-1)
+    d = torch.where(rays.neighbor_masks[:, None, :] > 0, d,
+                    torch.full((), 1e4, device=d.device))
+    nearest = torch.amin(d, dim=-1)
+    sign = torch.where(gt_sdf > 0, 1.0, -1.0)
+    gt_nearest_signed = torch.clamp(nearest * sign, -truncated_dist,
+                                    truncated_dist)
+    num_valid = torch.sum(rays.mask) + 1e-4
+    l1 = torch.abs(pred_sdf - gt_nearest_signed) * valid_map
+    ray_err = torch.sum(l1, dim=-1) * rays.mask
+    return torch.sum(ray_err) / num_valid
+
+
+def eval_render_loss(gathered_feats: torch.Tensor, prep, params: Dict[str, Any],
+                     rays: Rays, pts: torch.Tensor, cam_loc: torch.Tensor,
+                     voxel_size: float, min_pts_in_grid: int,
+                     truncated_dist: float) -> torch.Tensor:
+    """Differentiable tail: gathered feature rows -> chunk loss."""
+    n, s = pts.shape[:2]
+    pred = fusion.decode_eval(gathered_feats, prep, params, voxel_size,
+                              min_pts_in_grid).reshape(n, s)
+    return compute_sdf_loss(rays, pred, pts, cam_loc, truncated_dist)

@@ -1,0 +1,162 @@
+"""Online end-to-end reconstruction entry point.
+
+Counterpart of bnv_fusion_tpu/run_e2e.py:33-176:
+
+    python -m bnv_fusion_tpu_torch.run_e2e dataset=synthetic_demo \\
+        model.integrate_batch_size=16 model.use_fused_decode_kernel=true
+
+Streams posed depth frames through local fusion (K frames per table update
+when ``model.integrate_batch_size`` > 1), meshes the map (``before_optim.ply``),
+runs the global render-loss optimization, meshes again (``final.ply``),
+saves the map and prints the phase speeds and the F-scores against the
+analytic scene, in the JAX package's format.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from bnv_fusion_tpu_torch import evaluation
+from bnv_fusion_tpu_torch import mesh as mesh_mod
+from bnv_fusion_tpu_torch.config import load_config
+from bnv_fusion_tpu_torch.pipeline import NeuralMap
+
+log = logging.getLogger(__name__)
+
+
+def load_params(cfg):
+    """Weights: this framework's .npz (``trainer.checkpoint``) or, without
+    one, the seeded ``init_model`` weights."""
+    ckpt = getattr(cfg.trainer, "checkpoint", None)
+    if ckpt:
+        if not str(ckpt).endswith(".npz"):
+            raise NotImplementedError(
+                "reading the reference's .ckpt files is not ported yet "
+                "(ROADMAP Queue 1 item 1); pass an .npz")
+        from bnv_fusion_tpu_torch.checkpoint import load_state
+
+        state = load_state(ckpt)
+        return state.get("params", state)
+    log.warning("no trainer.checkpoint given — using random weights")
+    from bnv_fusion_tpu_torch.nn import init_model
+
+    return init_model(0)
+
+
+def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
+        ) -> Dict[str, Any]:
+    """The whole main path; returns the map, the meshes, the F-scores and
+    the working directory for callers that check them."""
+    cfg = load_config(overrides)
+    from bnv_fusion_tpu_torch.datasets import get_dataset  # registers readers
+
+    dataset = get_dataset(cfg, "val")
+    if params is None:
+        params = load_params(cfg)
+    scan_id = cfg.dataset.scan_id.split("/")[-1]
+    working_dir = os.path.join(cfg.output_dir, "run_e2e", scan_id)
+    os.makedirs(working_dir, exist_ok=True)
+
+    nmap = NeuralMap(dataset.dimensions, cfg, params, working_dir)
+    skip = int(getattr(cfg.dataset, "skip_images", 1)) or 1
+    batch_k = int(getattr(cfg.model, "integrate_batch_size", 1))
+    pending = []
+
+    log.info(f"fusing {len(dataset)} frames (scan {cfg.dataset.scan_id})")
+    for idx in range(len(dataset)):
+        frame = dataset[idx]
+        nmap.timer.start("local")
+        if batch_k > 1:
+            pending.append(frame)
+            if len(pending) == batch_k or idx == len(dataset) - 1:
+                if len(pending) == 1:
+                    nmap.integrate(pending[0])
+                else:
+                    nmap.integrate_batch(pending)
+                pending = []
+        else:
+            nmap.integrate(frame)
+        nmap.timer.log("local")
+
+    if nmap.overflow > 0:
+        log.warning(
+            f"table overflow = {nmap.overflow}: the compaction widths "
+            f"(model.max_unique_per_frame / max_unique_cells_per_frame) "
+            f"dropped observations — widen them")
+
+    nmap.timer.start("mesh")
+    before = nmap.extract_mesh()
+    nmap.timer.log("mesh")
+    if before is not None:
+        mesh_mod.save_ply(os.path.join(working_dir, "before_optim.ply"), before)
+        log.info(f"before_optim mesh: {len(before.vertices)} verts")
+
+    # reference formula: n_frames * skip, doubled outside demo mode;
+    # trainer.global_steps > 0 overrides it
+    global_steps = int(getattr(cfg.trainer, "global_steps", 0) or 0)
+    if global_steps <= 0:
+        global_steps = int(len(nmap.frames) * skip) * 2
+    nmap.timer.start("global")
+    nmap.optimize(n_iters=global_steps, last_frame=-1)
+    nmap.timer.log("global")
+
+    for phase in ("local", "global"):
+        t = nmap.timer.times[phase]
+        fps = global_steps / t if t > 0 else float("inf")
+        # the reference's printout divides global_steps by both phases' times
+        print(f"speed on {phase} fusion: {fps:.2f} fps")
+    t_local = nmap.timer.times["local"]
+    if t_local > 0:
+        print(f"local fusion throughput: "
+              f"{len(nmap.frames) / t_local:.2f} frames/s "
+              f"({len(nmap.frames)} frames, compile included)")
+
+    nmap.timer.start("mesh")
+    final = nmap.extract_mesh()
+    if final is not None and bool(getattr(cfg.trainer, "post_process", True)):
+        final = mesh_mod.post_process_mesh(
+            final, vertex_threshold=nmap.voxel_size / 4)
+    nmap.timer.log("mesh")
+    if final is not None:
+        mesh_mod.save_ply(os.path.join(working_dir, "final.ply"), final)
+        log.info(f"final mesh: {len(final.vertices)} verts -> "
+                 f"{working_dir}/final.ply")
+    nmap.save(os.path.join(working_dir, "final"))
+
+    fscores = {}
+    if final is not None and _area(final) <= 0:
+        print("F-score: the final mesh has no surface area")
+    elif final is not None and hasattr(dataset, "gt_observed_points"):
+        pred = mesh_mod.sample_surface(final, 100000, 0)
+        gt = dataset.gt_observed_points(100000)
+        for t in (0.025, 0.01):
+            res = evaluation.fscore_points(pred, gt, t)
+            fscores[t] = res
+            print(f"F-score @{t}: {res['fscore']:.4f} "
+                  f"(precision {res['precision']:.4f}, "
+                  f"recall {res['recall']:.4f})")
+    return {"nmap": nmap, "before_optim": before, "final": final,
+            "fscores": fscores, "working_dir": working_dir,
+            "global_steps": global_steps}
+
+
+def _area(m: mesh_mod.Mesh) -> float:
+    v, f = m.vertices, m.faces
+    return float(0.5 * np.linalg.norm(
+        np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]]),
+        axis=-1).sum()) if len(f) else 0.0
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    run(list(argv if argv is not None else sys.argv[1:]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

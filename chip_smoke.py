@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (bnv_fusion_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code != 0, no result line):
+  1. require CUDA; print the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from bnv_fusion_tpu_torch/csrc (one nvcc per
+     source, started together);
+  3. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes and at edge cases, and time both (CUDA events,
+     median after warm-up);
+  4. run the main path, bnv_fusion_tpu_torch.run_e2e, at bench.py's
+     operating point (voxel 0.01, 480x640, 48 frames, K=16 frames per table
+     update, fused mesh decode, 64 optimization steps) on seeded random
+     weights; the kernels' launch counts are zeroed just before and read
+     just after;
+  5. check the outputs: both kernels launched, no overflow, finite losses,
+     a non-empty binary final.ply, the saved map, and one K-batch fused
+     through the kernel equal to the same batch through the plain
+     seg-reduce (tables compared by voxel key).
+Weights: the port's seeded init_model.  The kernel checks draw its biases
+from N(0, 0.1^2) (bias_std), since zero biases would hide a decode kernel
+that dropped them or read them from the wrong offsets; the e2e run keeps
+the default zero biases, which leave the untrained decoder's SDF enough
+zero crossings for a sizeable mesh (random biases shift its sign).
+The last line of standard output is the JSON result
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+VOXEL = 0.01          # bench.py's voxel size, shared by e2e and the checks
+
+# bench.py's operating point (bench.py:59-84) + K=16 + the fused decode
+E2E_OVERRIDES = [
+    f"model.voxel_size={VOXEL}",
+    "dataset.num_images=48",
+    "dataset.img_res=[480,640]",
+    "dataset.stage_raw_depth=true",
+    "model.tsdf_every=4",
+    "model.max_unique_per_frame=116736",
+    "model.integrate_batch_size=16",
+    "model.use_fused_decode_kernel=true",
+    "trainer.global_steps=64",
+]
+
+# rtol/atol of the kernel checks: float segment sums are taken in another
+# order than the plain version's (index_add); the decode's FMAs run in
+# another order than cuBLAS's full-f32 products.  The decode's outputs are
+# ~alpha * voxel_size, so its bound scales with the voxel size.
+SEG_RTOL = SEG_ATOL = 1e-5
+DECODE_ATOL = 1e-4 * VOXEL
+BIAS_STD = 0.1
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def sorted_stream(B, M, n_int, n_float, n_distinct, sent, two_keys, g,
+                  frac_valid=0.8):
+    """A key-sorted stream like the fuse path's: ~n_distinct segments per
+    row over the first frac_valid of the rows, sentinel padding after, zero
+    payload on the padding."""
+    import torch
+
+    dev = "cuda"
+    nv = int(M * frac_valid)
+    base = torch.randint(0, n_distinct, (B, nv), generator=g, device=dev)
+    base = base * max(1, (sent - 1) // max(n_distinct, 1))
+    if two_keys:
+        sub = torch.randint(0, 8, (B, nv), generator=g, device=dev)
+        comb = torch.sort(base * 8 + sub, dim=1).values
+        base, sub = comb // 8, comb % 8
+    else:
+        base = torch.sort(base, dim=1).values
+    keys = torch.full((B, M), sent, dtype=torch.int32, device=dev)
+    keys[:, :nv] = base.to(torch.int32)
+    keys2 = None
+    if two_keys:
+        keys2 = torch.zeros((B, M), dtype=torch.int32, device=dev)
+        keys2[:, :nv] = sub.to(torch.int32)
+    cnts = torch.zeros((B, n_int, M), dtype=torch.int32, device=dev)
+    cnts[:, :, :nv] = torch.randint(0, 100, (B, n_int, nv), generator=g,
+                                    device=dev, dtype=torch.int32)
+    vals = torch.zeros((B, n_float, M), dtype=torch.float32, device=dev)
+    vals[:, :, :nv] = torch.randn((B, n_float, nv), generator=g, device=dev)
+    return keys, keys2, cnts, vals
+
+
+def check_seg(name, keys, keys2, cnts, vals, u, sent, timed=False):
+    """Kernel vs plain: keys, int sums and n_seg exact, floats within
+    SEG_RTOL/SEG_ATOL.  Returns (max_abs_err, ms, plain_ms)."""
+    import torch
+    from bnv_fusion_tpu_torch.kernels import (seg_reduce_sorted,
+                                              seg_reduce_sorted_torch)
+
+    k = seg_reduce_sorted(keys, cnts, vals, u, sent, keys2=keys2)
+    p = seg_reduce_sorted_torch(keys, cnts, vals, u, sent, keys2=keys2)
+    torch.cuda.synchronize()
+    if not torch.equal(k[4], p[4]):
+        raise AssertionError(f"{name}: n_seg differs")
+    for i, what in ((0, "keys"), (1, "keys2"), (2, "int sums")):
+        if p[i] is not None and not torch.equal(k[i], p[i]):
+            raise AssertionError(f"{name}: {what} differ")
+    err = (k[3] - p[3]).abs()
+    if bool((err > SEG_ATOL + SEG_RTOL * p[3].abs()).any()):
+        raise AssertionError(f"{name}: float sums differ, max {err.max():.3e}")
+    ms = plain_ms = float("nan")
+    if timed:
+        ms = median_ms(lambda: seg_reduce_sorted(keys, cnts, vals, u, sent,
+                                                 keys2=keys2))
+        plain_ms = median_ms(lambda: seg_reduce_sorted_torch(
+            keys, cnts, vals, u, sent, keys2=keys2))
+    print(f"  {name}: B={keys.shape[0]} M={keys.shape[1]} "
+          f"n_float={vals.shape[1]} u={u} n_seg[0]={int(p[4][0])} "
+          f"max_abs_err={float(err.max()) if err.numel() else 0.0:.3e}"
+          + (f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms" if timed else ""),
+          flush=True)
+    return (float(err.max()) if err.numel() else 0.0), ms, plain_ms
+
+
+def phase_kernels():
+    import torch
+    from bnv_fusion_tpu_torch import nn as bnn
+    from bnv_fusion_tpu_torch.kernels import (fused_corner_decode,
+                                              fused_corner_decode_torch)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sent = 260 * 260 * 160          # n_vox of the bench scene at voxel 0.01
+    res = {}
+    # the main path's two calls per K=16 batch (fusion.py:611,681)
+    e1, ms1, pm1 = check_seg("seg_reduce stage 1", *sorted_stream(
+        16, 307200, 1, 64, 7000, sent, True, g), u=65536, sent=sent,
+        timed=True)
+    e2, ms2, pm2 = check_seg("seg_reduce stage 2", *sorted_stream(
+        16, 524288, 1, 8, 110000, sent, False, g), u=116736, sent=sent,
+        timed=True)
+    # edge cases of tests/test_seg_reduce.py
+    k, k2, c, v = sorted_stream(2, 4096, 1, 3, 10, 100, False, g)
+    k.fill_(100)
+    c.zero_()
+    v.zero_()
+    e3, _, _ = check_seg("seg_reduce all-sentinel", k, k2, c, v, 16, 100)
+    k = torch.arange(5000, dtype=torch.int32, device="cuda")[None].repeat(2, 1)
+    c = torch.ones((2, 1, 5000), dtype=torch.int32, device="cuda")
+    v = torch.randn((2, 2, 5000), generator=g, device="cuda")
+    e4, _, _ = check_seg("seg_reduce more segments than u", k, None, c, v,
+                         64, 1 << 16)
+    k = torch.cat([torch.arange(100), torch.full((3000,), 500),
+                   torch.arange(1000, 1996)]).to(torch.int32).cuda()[None]
+    c = torch.randint(0, 5, (1, 1, 4096), generator=g, device="cuda",
+                      dtype=torch.int32)
+    v = torch.randn((1, 2, 4096), generator=g, device="cuda")
+    e5, _, _ = check_seg("seg_reduce segment over many blocks", k, None, c, v,
+                         1024, 1 << 20)
+    res["seg_reduce_sorted"] = {"max_abs_err": max(e1, e2, e3, e4, e5),
+                                "ms": ms1 + ms2, "plain_ms": pm1 + pm2}
+
+    params = bnn.init_model(0, device="cuda", bias_std=BIAS_STD)
+    errs, times = [], None
+    for n in (262144, 262144 - 37):
+        local = torch.rand((n, 8, 3), generator=g, device="cuda") * 2 - 1
+        feats = torch.randn((n, 8, 8), generator=g, device="cuda")
+        tw = torch.rand((n, 8), generator=g, device="cuda")
+        tw = tw / tw.sum(-1, keepdim=True)
+        a = fused_corner_decode(params, local, feats, tw, VOXEL)
+        b = fused_corner_decode_torch(params, local, feats, tw, VOXEL)
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max())
+        if not err <= DECODE_ATOL:
+            raise AssertionError(f"fused_corner_decode N={n}: max abs err "
+                                 f"{err:.3e} > {DECODE_ATOL}")
+        errs.append(err)
+        if times is None:
+            times = (median_ms(lambda: fused_corner_decode(
+                params, local, feats, tw, VOXEL)),
+                median_ms(lambda: fused_corner_decode_torch(
+                    params, local, feats, tw, VOXEL)))
+        print(f"  fused_corner_decode N={n}: max_abs_err={err:.3e}"
+              + (f" kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms"
+                 if n == 262144 else ""), flush=True)
+    res["fused_corner_decode"] = {"max_abs_err": max(errs), "ms": times[0],
+                                  "plain_ms": times[1]}
+    return res
+
+
+def read_ply_header(path):
+    with open(path, "rb") as f:
+        head = f.read(512).split(b"end_header")[0].decode(errors="replace")
+    n_v = n_f = 0
+    for line in head.splitlines():
+        parts = line.split()
+        if parts[:2] == ["element", "vertex"]:
+            n_v = int(parts[2])
+        if parts[:2] == ["element", "face"]:
+            n_f = int(parts[2])
+    return head, n_v, n_f
+
+
+def phase_reference(nmap):
+    """One K-batch of the bench frames fused through the kernel path and
+    through the plain seg-reduce path into fresh tables: keys, weights and
+    hits must match exactly, features within 1e-4 (exact-f32 stage 2)."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import fusion, tables as tbl
+    from bnv_fusion_tpu_torch.pipeline import _frame_points
+
+    frames = nmap.frames[:4]
+    pts = [_frame_points(f["depth"], f["T_wc"], f["intr"]) for f in frames]
+    pw, nw, va = (torch.stack([p[j] for p in pts]) for j in range(3))
+    out = {}
+    for mode in (True, "interpret"):
+        t = tbl.create_table(nmap.feat_dims, nmap.table.capacity,
+                             n_xyz=nmap.n_xyz, device=nmap.device)
+        mu, muc = nmap._width_values()
+        fusion.fuse_frames_merged(
+            t, nmap.params, pw, nw, va, nmap.bound_min, nmap.bound_max,
+            nmap.voxel_size, nmap.min_pts_in_grid, max_unique=mu,
+            max_unique_cells=muc, seg_kernel=mode, sort_bf16=False)
+        keys, feats, w, h, _ = tbl.active_entries(t)
+        order = np.lexsort(keys.T[::-1])
+        out[mode] = (keys[order], feats[order], w[order], h[order])
+    (ka, fa, wa, ha), (kb, fb, wb, hb) = out[True], out["interpret"]
+    if not (np.array_equal(ka, kb) and np.array_equal(wa, wb) and
+            np.array_equal(ha, hb)):
+        raise AssertionError("kernel-path fusion: keys/weights/hits differ "
+                             "from the plain path")
+    ferr = float(np.abs(fa - fb).max()) if len(fa) else 0.0
+    if not ferr <= 1e-4:
+        raise AssertionError(f"kernel-path fusion: features differ by {ferr}")
+    print(f"  reference check: 4 bench frames fused via kernel == plain "
+          f"path ({len(ka)} voxels, feature max abs err {ferr:.3e})",
+          flush=True)
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "bnv_fusion_tpu_torch")):
+        return fail("bnv_fusion_tpu_torch/ not found beside chip_smoke.py; "
+                    "run it from a checkout of the repository")
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = (smi.stdout.strip().splitlines() or ["unknown"])[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    from bnv_fusion_tpu_torch.kernels import _build
+    t0 = time.time()
+    took = _build.build()
+    print(f"phase build: {time.time() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})",
+          flush=True)
+
+    print("phase kernels vs plain versions:", flush=True)
+    kres = phase_kernels()
+
+    print("phase e2e: run_e2e at the bench operating point", flush=True)
+    from bnv_fusion_tpu_torch import run_e2e
+    from bnv_fusion_tpu_torch.nn import init_model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        params = init_model(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.time()
+        out = run_e2e.run(E2E_OVERRIDES + [f"output_dir={tmp}"], params=params)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        nmap = out["nmap"]
+        tm = nmap.timer.times
+        print(f"  launches in the e2e run: {launches}", flush=True)
+        print(f"  local fusion: {len(nmap.frames) / tm['local']:.2f} frames/s "
+              f"({len(nmap.frames)} frames in {tm['local']:.2f} s)")
+        print(f"  optimize: {tm['global'] / out['global_steps']:.4f} s/iter "
+              f"({out['global_steps']} iters in {tm['global']:.2f} s)")
+        print(f"  mesh: {tm['mesh']:.2f} s for 2 extractions "
+              f"(before_optim + final)")
+        for t, r in out["fscores"].items():
+            print(f"  F-score @{t}: {r['fscore']:.4f} (untrained weights, "
+                  f"information only)")
+        print(f"  peak device memory: {peak / 2**30:.2f} GiB; e2e wall "
+              f"{wall:.1f} s", flush=True)
+
+        for name in ("seg_reduce_sorted", "fused_corner_decode"):
+            if launches.get(name, 0) <= 0:
+                return fail(f"the main path never launched {name}")
+        if nmap.overflow != 0:
+            return fail(f"table overflow {nmap.overflow}")
+        losses = np.asarray(nmap.optimize_losses, np.float64)
+        if len(losses) != out["global_steps"] or \
+                not np.all(np.isfinite(losses)):
+            return fail(f"optimize losses not all finite: {losses}")
+        print(f"  optimize loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+        wd = out["working_dir"]
+        head, n_v, n_f = read_ply_header(os.path.join(wd, "final.ply"))
+        if "binary_little_endian" not in head or n_v <= 0 or n_f <= 0:
+            return fail(f"final.ply is not a non-empty binary PLY "
+                        f"({n_v} vertices, {n_f} faces)")
+        if not np.all(np.isfinite(out["final"].vertices)):
+            return fail("final mesh has non-finite vertices")
+        if not os.path.exists(os.path.join(wd, "final_sparse_volume.npz")):
+            return fail("final_sparse_volume.npz was not written")
+        if not bool(torch.isfinite(nmap.table.features).all()):
+            return fail("table features are not finite")
+        print(f"  final.ply: {n_v} vertices, {n_f} faces", flush=True)
+        phase_reference(nmap)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    src = {"seg_reduce_sorted": ("bnv_fusion_tpu_torch/csrc/seg_reduce.cu",
+                                 "bnv_fusion_tpu/kernels/seg_reduce.py:184"),
+           "fused_corner_decode": ("bnv_fusion_tpu_torch/csrc/fused_decode.cu",
+                                   "bnv_fusion_tpu/kernels/fused_decode.py:64")}
+    kernels = [{"name": n, "route": "cuda", "source": src[n][0],
+                "replaces": src[n][1], "launches": launches[n],
+                "max_abs_err": kres[n]["max_abs_err"], "ms": kres[n]["ms"],
+                "plain_ms": kres[n]["plain_ms"]} for n in src]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception as e:  # noqa: BLE001 - report, then exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        sys.exit(fail(f"{type(e).__name__}: {e}"))
