@@ -2,10 +2,13 @@
 
 Counterpart of bnv_fusion_tpu/geometry.py:19-217 on torch tensors.  Every
 function keeps the input's device; shapes are those of the JAX package.
+``DepthNoiseSimulator`` (geometry.py:148-175) is host numpy, copied as is so
+that one seed gives the same noisy depth in both packages.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -95,3 +98,27 @@ def gather_pixel_neighborhoods(xyz_map: torch.Tensor, mask: torch.Tensor,
     u = torch.clamp(uv[:, None, 0] + du[None, :], 0, w - 1)
     v = torch.clamp(uv[:, None, 1] + dv[None, :], 0, h - 1)
     return xyz_map[v, u], mask[v, u]
+
+
+class DepthNoiseSimulator:
+    """Parametric Kinect-style depth noise: axial sigma(z) = a + b (z - z0)^2
+    plus lateral jitter of the sampling position by ~1 pixel (host numpy)."""
+
+    def __init__(self, seed: int = 0, a: float = 0.0012, b: float = 0.0019,
+                 z0: float = 0.4, lateral_px: float = 0.8):
+        self.rng = np.random.RandomState(seed)
+        self.a, self.b, self.z0 = a, b, z0
+        self.lateral_px = lateral_px
+
+    def simulate(self, depth: np.ndarray) -> np.ndarray:
+        h, w = depth.shape
+        valid = depth > 0
+        sigma = self.a + self.b * np.square(depth - self.z0)
+        noisy = depth + self.rng.randn(h, w) * sigma
+        du = np.clip(np.round(self.rng.randn(h, w) * self.lateral_px), -2, 2)
+        dv = np.clip(np.round(self.rng.randn(h, w) * self.lateral_px), -2, 2)
+        uu, vv = np.meshgrid(np.arange(w), np.arange(h))
+        su = np.clip(uu + du, 0, w - 1).astype(np.int64)
+        sv = np.clip(vv + dv, 0, h - 1).astype(np.int64)
+        noisy = noisy[sv, su]
+        return np.where(valid, np.maximum(noisy, 0.0), 0.0).astype(np.float32)

@@ -1,0 +1,138 @@
+"""Fused ReLU MLP: CUDA kernel + plain version.
+
+Counterpart of bnv_fusion_tpu/kernels/fused_mlp.py (``FusedMLP`` and the
+Pallas TPU kernel ``fused_mlp_feature_major`` at :79).  ``FusedMLP(params)(x)``
+equals ``nn.mlp_apply(params, x)`` for x [..., din].  The TPU kernel's
+feature-major layout is a lane-padding workaround and is not kept: the CUDA
+kernel (csrc/fused_mlp.cu) takes row-major rows.  On CUDA tensors the kernel
+runs (the tcnn topology only: 3 hidden layers of 64, din <= 32, dout <= 16;
+anything else raises ValueError); on CPU tensors the plain version runs, for
+any topology.  Forward only, like the TPU kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from bnv_fusion_tpu_torch import nn as bnn
+from bnv_fusion_tpu_torch.kernels import _build
+
+_HIDDEN = 64
+_N_HIDDEN = 3
+_MAX_IN = 32
+_MAX_OUT = 16
+
+
+def fused_mlp_torch(params: Dict[str, torch.Tensor],
+                    x: torch.Tensor) -> torch.Tensor:
+    """Plain version: nn.mlp_apply."""
+    return bnn.mlp_apply(params, x)
+
+
+def _padded_out(dout: int) -> int:
+    """The kernel's output width for dout (csrc/fused_mlp.cu, launch<DP>)."""
+    return 1 if dout <= 1 else 4 if dout <= 4 else 8 if dout <= 8 else 16
+
+
+def mlp_dims(params: Dict[str, torch.Tensor]):
+    """(din, dout) of an MLP the kernel supports; ValueError otherwise."""
+    names = {f"w{i}" for i in range(_N_HIDDEN)} | {"w_out"}
+    if {k for k in params if k.startswith("w")} != names:
+        raise ValueError("fused_mlp: the kernel takes 3 hidden layers "
+                         f"(w0..w2, w_out); got {sorted(params)}")
+    din, hid = params["w0"].shape
+    dout = params["w_out"].shape[1]
+    if hid != _HIDDEN or not 1 <= din <= _MAX_IN or \
+            not 1 <= dout <= _MAX_OUT or \
+            any(tuple(params[f"w{i}"].shape) != (_HIDDEN, _HIDDEN)
+                for i in (1, 2)) or \
+            tuple(params["w_out"].shape) != (_HIDDEN, dout):
+        raise ValueError(
+            f"fused_mlp: unsupported topology {din} -> "
+            f"{[tuple(params[k].shape) for k in sorted(names)]} (the kernel "
+            f"takes din <= {_MAX_IN} -> 64 x 3 -> dout <= {_MAX_OUT})")
+    return int(din), int(dout)
+
+
+def pack_params(params: Dict[str, torch.Tensor], device) -> torch.Tensor:
+    """The kernel's weight layout: w0 [din, 64], b0, w1, b1, w2, b2, then
+    w_out [64, DP] and b_out [DP] zero-padded to the kernel's output width,
+    concatenated as one f32 vector on ``device``."""
+    _, dout = mlp_dims(params)
+    dp = _padded_out(dout)
+    f32 = {k: v.to(device=device, dtype=torch.float32) for k, v in
+           params.items()}
+    w_out = torch.zeros((_HIDDEN, dp), dtype=torch.float32, device=device)
+    w_out[:, :dout] = f32["w_out"]
+    b_out = torch.zeros((dp,), dtype=torch.float32, device=device)
+    b_out[:dout] = f32["b_out"].reshape(-1)
+    parts = []
+    for i in range(_N_HIDDEN):
+        parts += [f32[f"w{i}"].reshape(-1), f32[f"b{i}"].reshape(-1)]
+    return torch.cat(parts + [w_out.reshape(-1), b_out]).contiguous()
+
+
+def fused_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              packed: torch.Tensor | None = None) -> torch.Tensor:
+    """mlp_apply(params, x) for x [..., din] -> [..., dout]: the CUDA kernel
+    on CUDA tensors, the plain version on CPU tensors.  ``packed`` is
+    ``pack_params(params, x.device)``, reused across calls by FusedMLP."""
+    if x.device.type == "cpu":
+        return fused_mlp_torch(params, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+    din, dout = mlp_dims(params)
+    if x.shape[-1] != din:
+        raise ValueError(f"fused_mlp: input width {x.shape[-1]} != {din}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_mlp: expected float32, got {x.dtype}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, din).contiguous()
+    m = x2.shape[0]
+    if packed is None:
+        packed = pack_params(params, x.device)
+    _build.check_cuda_tensor(packed, "packed", torch.float32, 1, x.device)
+    lib = _build.load("fused_mlp")
+    size = lib.bnv_fused_mlp_packed_size
+    size.restype = ctypes.c_int
+    size.argtypes = [ctypes.c_int, ctypes.c_int]
+    if packed.numel() != size(din, dout):
+        raise ValueError(f"fused_mlp: packed weights hold {packed.numel()} "
+                         f"floats, the kernel expects {size(din, dout)}")
+    out = torch.empty((m, dout), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out.reshape(lead + (dout,))
+
+    fn = lib.bnv_fused_mlp
+    fn.restype = ctypes.c_int
+    P = ctypes.c_void_p
+    fn.argtypes = [P, P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, P, P]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(P(x2.data_ptr()), P(packed.data_ptr()), din, dout, m,
+                  P(out.data_ptr()), P(stream))
+    _build.raise_on_error(code, "fused_mlp")
+    _build.LAUNCHES["fused_mlp"] += 1
+    return out.reshape(lead + (dout,))
+
+
+class FusedMLP:
+    """FusedMLP(params)(x [..., din]) matches nn.mlp_apply(params, x)
+    (the JAX package's row-major API).  The packed weights are built once
+    per device."""
+
+    def __init__(self, params: Dict[str, torch.Tensor]):
+        self.params = params
+        self.din = int(params["w0"].shape[0])
+        self.dout = int(params["w_out"].shape[1])
+        self._packed: Dict[torch.device, torch.Tensor] = {}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return fused_mlp(self.params, x)
+        if x.device not in self._packed:
+            self._packed[x.device] = pack_params(self.params, x.device)
+        return fused_mlp(self.params, x, self._packed[x.device])

@@ -47,6 +47,18 @@ def encoder_apply(params: Dict[str, Any], pts6: torch.Tensor) -> torch.Tensor:
     return mlp_apply(params["encoder"], pts6)
 
 
+def encoder_global_apply(params: Dict[str, Any], pts6: torch.Tensor,
+                         valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean-pooled global feature over a point set: [B, N, 6] -> [B, F],
+    over the ``valid`` points only when a mask is given."""
+    feats = mlp_apply(params["encoder"], pts6)
+    if valid is None:
+        return torch.mean(feats, dim=-2)
+    v = valid[..., None].to(feats.dtype)
+    return torch.sum(feats * v, dim=-2) / torch.clamp(torch.sum(v, dim=-2),
+                                                      min=1.0)
+
+
 def decoder_apply(params: Dict[str, Any], local_xyz: torch.Tensor,
                   feats: torch.Tensor, num_pe_fns: int = 1) -> torch.Tensor:
     """SDF decoder: (local offset in voxel units, latent) -> raw SDF [..., 1].

@@ -1,8 +1,9 @@
 """NeuralMap: the online bi-level fusion pipeline (integrate / optimize / mesh).
 
-Counterpart of bnv_fusion_tpu/pipeline.py:36-1396 and :1498-1515, limited to
-one device, the dense slot-map table and the dense TSDF prior.  PyTorch runs
-eagerly, so the JAX package's jit caches have no counterpart.  The device
+Counterpart of bnv_fusion_tpu/pipeline.py:36-1396 and :1498-1546 (``save``,
+``load_volume``, ``load_map``), limited to one device, the dense slot-map
+table and the dense TSDF prior.  PyTorch runs eagerly, so the JAX package's
+jit caches have no counterpart.  The device
 comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
 "the accelerator") and ``cuda`` select CUDA and raise where there is none;
 ``cpu`` is for tests.  Options this port does not implement yet raise
@@ -20,7 +21,7 @@ import torch
 from bnv_fusion_tpu_torch import checkpoint as ckpt_io
 from bnv_fusion_tpu_torch import fusion, geometry, mesh as mesh_mod
 from bnv_fusion_tpu_torch import nn as bnn
-from bnv_fusion_tpu_torch import optimize, tsdf
+from bnv_fusion_tpu_torch import optimize, table_dense, tsdf
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel as vx
 
@@ -178,6 +179,9 @@ class NeuralMap:
                 else None)
         self.timer = Timer(["local", "global", "mesh"], sync=sync)
         self.optimize_losses: List[float] = []
+        # per-frame mean points per touched voxel, kept on the device until
+        # read (fetching each would sync every frame)
+        self._pending_stats: List[torch.Tensor] = []
         self._optim_step = None
         self._optim_lr = None
 
@@ -235,6 +239,13 @@ class NeuralMap:
                            self.tsdf_voxel_size, obs_weight=obs_weight)
 
     @property
+    def stats(self) -> List[float]:
+        """Mean points per touched voxel of every fused frame, in order."""
+        if not self._pending_stats:
+            return []
+        return torch.cat(self._pending_stats).cpu().tolist()
+
+    @property
     def overflow(self) -> int:
         """Voxels/cells dropped by the static compaction widths (0 = every
         observation landed)."""
@@ -255,10 +266,11 @@ class NeuralMap:
         intr = self._tensor(frame["intr_mat"])
         max_unique, mu_cells = self._width_values()
         pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
-        fusion.fuse_frame_cellsort(
+        stats = fusion.fuse_frame_cellsort(
             self.table, self.params, pts_w, normals_w, valid, self.bound_min,
             self.bound_max, self.voxel_size, self.min_pts_in_grid,
             max_unique=max_unique, max_unique_cells=mu_cells)
+        self._pending_stats.append(stats.n_avg_pts.reshape(1))
         self._integrate_prior(depth, T_wc, intr)
         self.frames.append({"depth": depth, "T_wc": T_wc, "intr": intr,
                             "frame_id": frame.get("frame_id")})
@@ -325,12 +337,13 @@ class NeuralMap:
                                    for j in range(3))
         del pts
         max_unique, mu_cells = self._width_values()
-        fusion.fuse_frames_merged(
+        stats = fusion.fuse_frames_merged(
             self.table, self.params, pts_w, normals_w, valid, self.bound_min,
             self.bound_max, self.voxel_size, self.min_pts_in_grid,
             max_unique=max_unique, max_unique_cells=mu_cells,
             max_unique_batch=self._mu_batch, seg_kernel=self._seg_kernel(),
             sort_bf16=bool(getattr(m, "fuse_sort_bf16", False)))
+        self._pending_stats.append(stats.n_avg_pts.reshape(-1))
         del pts_w, normals_w, valid
         every = int(getattr(m, "tsdf_every", 1))
         for j in range(0, len(keep), every):
@@ -484,6 +497,33 @@ class NeuralMap:
         })
         np.save(path_prefix + "_tsdf.npy",
                 self.tsdf_vol.sdf.cpu().numpy() * (self.tsdf_voxel_size * 5))
+
+    def load_volume(self, path: str):
+        """Replace the table by the entries of a saved
+        ``*_sparse_volume.npz`` (either package's)."""
+        data = ckpt_io.load_state(path)
+        self.table = table_dense.load_entries(
+            self.n_xyz, self.table.capacity, data["active_coordinates"],
+            data["features"], data["weights"], data["num_hits"],
+            device=self.device)
+
+    def set_tsdf_prior(self, metric: np.ndarray):
+        """Install a metric TSDF prior of the volume's shape (normalized by
+        tsdf_voxel_size * 5, weight 1 everywhere)."""
+        normalized = np.asarray(metric, np.float32) / \
+            np.float32(self.tsdf_voxel_size * 5.0)
+        if normalized.shape != tuple(self.tsdf_vol.sdf.shape):
+            raise ValueError(
+                f"tsdf prior shape {normalized.shape} != volume "
+                f"{tuple(self.tsdf_vol.sdf.shape)}")
+        self.tsdf_vol.sdf = torch.as_tensor(normalized, device=self.device)
+        self.tsdf_vol.weight = torch.ones_like(self.tsdf_vol.weight)
+
+    def load_map(self, path_prefix: str):
+        """Resume a saved map: sparse volume + TSDF prior (the counterpart
+        of ``save``)."""
+        self.load_volume(path_prefix + "_sparse_volume.npz")
+        self.set_tsdf_prior(np.load(path_prefix + "_tsdf.npy"))
 
 
 def _to_numpy_tree(tree):

@@ -30,18 +30,18 @@ log = logging.getLogger(__name__)
 
 
 def load_params(cfg):
-    """Weights: this framework's .npz (``trainer.checkpoint``) or, without
-    one, the seeded ``init_model`` weights."""
+    """Weights (``trainer.checkpoint``): a reference .ckpt (either format)
+    or this framework's .npz; without one, the seeded ``init_model``
+    weights."""
     ckpt = getattr(cfg.trainer, "checkpoint", None)
     if ckpt:
-        if not str(ckpt).endswith(".npz"):
-            raise NotImplementedError(
-                "reading the reference's .ckpt files is not ported yet "
-                "(ROADMAP Queue 1 item 1); pass an .npz")
-        from bnv_fusion_tpu_torch.checkpoint import load_state
+        log.info(f"loading pretrained weights from {ckpt}")
+        from bnv_fusion_tpu_torch import checkpoint
 
-        state = load_state(ckpt)
-        return state.get("params", state)
+        if str(ckpt).endswith(".npz"):
+            state = checkpoint.load_state(ckpt)
+            return state.get("params", state)
+        return checkpoint.load_pretrained(ckpt)
     log.warning("no trainer.checkpoint given — using random weights")
     from bnv_fusion_tpu_torch.nn import init_model
 

@@ -1,10 +1,12 @@
 """Dense TSDF prior volume: classic projective TSDF fusion.
 
-Counterpart of bnv_fusion_tpu/tsdf.py:31-143 and :530-617 (dense layout
-only; the block-major volume is ROADMAP Queue 1 item 13).  The volume starts
-at ``-trunc_margin`` (the reference's weak negative prior), stores normalized
-TSDF values (callers rescale by ``voxel_size * 5``) and looks depth up at the
-rounded pixel.  ``integrate`` updates the volume IN PLACE.
+Counterpart of bnv_fusion_tpu/tsdf.py:31-143, :176-235 (the per-frame
+supervision grids the refiner's noisy-depth prior accumulates) and
+:530-617 (dense layout only; the block-major volume is ROADMAP Queue 1
+item 13).  The volume starts at ``-trunc_margin`` (the reference's weak
+negative prior), stores normalized TSDF values (callers rescale by
+``voxel_size * 5``) and looks depth up at the rounded pixel.  ``integrate``
+updates the volume IN PLACE.
 """
 
 from __future__ import annotations
@@ -96,6 +98,69 @@ def prepare_sdf_delta(vol: TSDFVolume, voxel_size: float,
     metric = vol.sdf * (voxel_size * 5.0)
     return torch.clamp(metric, -truncated_dist, truncated_dist) * \
         sdf_delta_weight
+
+
+def depth_to_tsdf_grid(depth: torch.Tensor, T_wc: torch.Tensor,
+                       intr: torch.Tensor, min_coords: torch.Tensor,
+                       volume_resolution: Tuple[int, int, int],
+                       voxel_size: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame's dense world-grid TSDF + weights at the model voxel size:
+    voxel centers projected into the frame, depth nearest-sampled with
+    grid_sample(align_corners=True) semantics, sdf = clip(depth - z,
+    +-5 voxels); valid = observed & in front & sdf > -2 voxels; weight 1 on
+    valid, sdf 0 elsewhere."""
+    h, w = depth.shape
+    dev = depth.device
+    dx, dy, dz = (int(v) for v in volume_resolution)
+    ii, jj, kk = torch.meshgrid(
+        torch.arange(dx, dtype=torch.float32, device=dev),
+        torch.arange(dy, dtype=torch.float32, device=dev),
+        torch.arange(dz, dtype=torch.float32, device=dev), indexing="ij")
+    world = (torch.stack([ii, jj, kk], dim=-1) + 0.5) * voxel_size + \
+        min_coords
+    T_cw = torch.linalg.inv(T_wc)
+    cam = world @ T_cw[:3, :3].T + T_cw[:3, 3]
+    z = cam[..., 2]
+    safe_z = torch.where(torch.abs(z) > 1e-8, z,
+                         torch.full((), 1e-8, device=dev))
+    px = cam[..., 0] * intr[0, 0] / safe_z + intr[0, 2]
+    py = cam[..., 1] * intr[1, 1] / safe_z + intr[1, 2]
+    ix = torch.round(px * (w - 1) / w).long()
+    iy = torch.round(py * (h - 1) / h).long()
+    inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    zero = torch.zeros((), device=dev)
+    d = torch.where(inside, depth[torch.clamp(iy, 0, h - 1),
+                                  torch.clamp(ix, 0, w - 1)], zero)
+    sdf = torch.clamp(d - z, -5.0 * voxel_size, 5.0 * voxel_size)
+    valid = (torch.abs(d) > 1e-5) & (z > 0) & (sdf > -2.0 * voxel_size)
+    return torch.where(valid, sdf, zero), valid.to(torch.float32)
+
+
+def accumulate_tsdf_window(depths, T_wcs, intrs, min_coords,
+                           volume_resolution, voxel_size: float,
+                           device: torch.device | str = "cpu"):
+    """Mean of per-frame TSDF grids over the frames that observe each voxel;
+    never-observed voxels get +5 voxels.  Inputs are host arrays or tensors;
+    returns (sdf, observation count) on ``device``."""
+    res = tuple(int(v) for v in volume_resolution)
+    sdf_sum = torch.zeros(res, dtype=torch.float32, device=device)
+    w_sum = torch.zeros(res, dtype=torch.float32, device=device)
+
+    def dev_t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    mn = dev_t(min_coords)
+    for depth, T_wc, intr in zip(depths, T_wcs, intrs):
+        s, w = depth_to_tsdf_grid(dev_t(depth), dev_t(T_wc), dev_t(intr), mn,
+                                  res, voxel_size)
+        sdf_sum = sdf_sum + s
+        w_sum = w_sum + w
+    n = len(depths)
+    sdf = sdf_sum / torch.clamp(w_sum, 1.0, float(n))
+    sdf = torch.where(w_sum == 0, torch.full((), 5.0 * voxel_size,
+                                             device=sdf.device), sdf)
+    return sdf, w_sum
 
 
 def frustum_window_shape(intr: np.ndarray, img_hw, max_depth: float,

@@ -1,7 +1,8 @@
 """Voxel-grid index math: world ranges, flat ids, corner neighbours, trilinear.
 
-Counterpart of bnv_fusion_tpu/voxel.py:17-98.  ``get_world_range`` is host
-numpy (a setup helper); the rest run on tensors of any device.
+Counterpart of bnv_fusion_tpu/voxel.py:17-98 and ``grid_transform``
+(:139-164).  ``get_world_range`` is host numpy (a setup helper); the rest
+run on tensors of any device.
 """
 
 from __future__ import annotations
@@ -76,3 +77,39 @@ def trilinear_weights(coords: torch.Tensor, corners: torch.Tensor) -> torch.Tens
 def local_offsets(coords: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
     """Offsets (voxel units, in [-1, 1]) of a point from each corner."""
     return coords[..., None, :] - corners.to(coords.dtype)
+
+
+def grid_transform(src: torch.Tensor, src_min, src_voxel, dst_min,
+                   dst_voxel, dst_shape) -> torch.Tensor:
+    """Resample a dense volume [X, Y, Z] onto another grid by trilinear
+    interpolation, clamped at the source's edges.  ``*_min`` and
+    ``*_voxel`` are scalars or per-axis [3] values."""
+    dev = src.device
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    dx, dy, dz = (int(v) for v in dst_shape)
+    ii, jj, kk = torch.meshgrid(
+        torch.arange(dx, dtype=torch.float32, device=dev),
+        torch.arange(dy, dtype=torch.float32, device=dev),
+        torch.arange(dz, dtype=torch.float32, device=dev), indexing="ij")
+    world = torch.stack([ii, jj, kk], dim=-1) * vec(dst_voxel) + vec(dst_min)
+    c = (world - vec(src_min)) / vec(src_voxel)
+    hi = torch.as_tensor([s - 1 for s in src.shape], device=dev)
+    c = torch.minimum(torch.clamp(c, min=0.0), hi.to(torch.float32))
+    f = torch.floor(c).long()
+    t = c - f
+    f1 = torch.minimum(f + 1, hi)
+    out = torch.zeros((dx, dy, dz), dtype=src.dtype, device=dev)
+    for bx in (0, 1):
+        for by in (0, 1):
+            for bz in (0, 1):
+                ix = f1[..., 0] if bx else f[..., 0]
+                iy = f1[..., 1] if by else f[..., 1]
+                iz = f1[..., 2] if bz else f[..., 2]
+                wgt = ((t[..., 0] if bx else 1 - t[..., 0]) *
+                       (t[..., 1] if by else 1 - t[..., 1]) *
+                       (t[..., 2] if bz else 1 - t[..., 2]))
+                out = out + wgt * src[ix, iy, iz]
+    return out

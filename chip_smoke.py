@@ -18,7 +18,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
   5. check the outputs: both kernels launched, no overflow, finite losses,
      a non-empty binary final.ply, the saved map, and one K-batch fused
      through the kernel equal to the same batch through the plain
-     seg-reduce (tables compared by voxel key).
+     seg-reduce (tables compared by voxel key);
+  6. fused_mlp: FusedMLP (the kernel's public API) driven once on the
+     encoder and decoder weights, then held against the plain mlp_apply at
+     the encoder's M = 480*640*8 rows (profiling/profile_fused_mlp.py's
+     shape) and the decoder's M = 2^18*8, both timed, and at a ragged M and
+     a batched [7, 11, 6] input;
+  7. pretrain: bnv_fusion_tpu_torch.train on synthetic patches at the full
+     model width (batch 32, 64 points, 256 queries, 32 steps): finite step
+     losses, a falling loss, loadable last.npz / best.npz;
+  8. offline: bnv_fusion_tpu_torch.test (frame-by-frame fusion) at bench.py's
+     operating point, then the refiner (train.py model=fusion_refiner_model)
+     on the saved map and prior with the fused mesh decode: the loaded table
+     equals the saved one by voxel key, 48 finite losses, a non-empty
+     binary refined_0.ply, the saved refined map, no overflow, and
+     fused_corner_decode launched.
+Each phase prints its wall time; the kernels line gives each kernel's
+launches on its path, error, times and bound (the larger of bytes over
+3.35 TB/s and flops over 67 TFLOP/s, the H100 SXM's published HBM rate and
+f32 rate outside the tensor cores).
 Weights: the port's seeded init_model.  The kernel checks draw its biases
 from N(0, 0.1^2) (bias_std), since zero biases would hide a decode kernel
 that dropped them or read them from the wrong offsets; the e2e run keeps
@@ -61,6 +79,29 @@ E2E_OVERRIDES = [
 SEG_RTOL = SEG_ATOL = 1e-5
 DECODE_ATOL = 1e-4 * VOXEL
 BIAS_STD = 0.1
+# fused_mlp: 64-term f32 sums taken in another order than cuBLAS's, on
+# outputs of magnitude ~1-10 (observed max abs err ~3e-6)
+MLP_ATOL = MLP_RTOL = 1e-4
+ENC_ROWS = 480 * 640 * 8          # profiling/profile_fused_mlp.py:16
+DEC_ROWS = (1 << 18) * 8          # one mesh-lattice batch, 8 corners each
+
+# H100 SXM published peaks (NVIDIA datasheet): HBM and f32 FMA
+# outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+# the offline flow at bench.py's operating point (bench.py:59-84), frames
+# fused one at a time (test.py), then refined with the fused mesh decode
+OFFLINE_OVERRIDES = [
+    f"model.voxel_size={VOXEL}",
+    "dataset.num_images=48",
+    "dataset.img_res=[480,640]",
+    "model.max_unique_per_frame=116736",
+    "model.use_fused_decode_kernel=true",
+]
+PRETRAIN_OVERRIDES = ["model=fusion_pointnet_model",
+                      "dataset=synthetic_patches", "dataset.num_patches=1024",
+                      "trainer.max_epochs=1"]
 
 
 def fail(msg: str) -> int:
@@ -85,6 +126,18 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         times.append(s.elapsed_time(e))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(n_bytes: float, n_flops: float):
+    """(least time in ms, what bounds it) for work that must move n_bytes
+    and do n_flops f32 operations."""
+    t_mem = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def sorted_stream(B, M, n_int, n_float, n_distinct, sent, two_keys, g,
@@ -120,7 +173,9 @@ def sorted_stream(B, M, n_int, n_float, n_distinct, sent, two_keys, g,
 
 def check_seg(name, keys, keys2, cnts, vals, u, sent, timed=False):
     """Kernel vs plain: keys, int sums and n_seg exact, floats within
-    SEG_RTOL/SEG_ATOL.  Returns (max_abs_err, ms, plain_ms)."""
+    SEG_RTOL/SEG_ATOL.  Returns (max_abs_err, ms, plain_ms, bytes, flops):
+    bytes = the inputs read once and the outputs written once, flops = one
+    add per input channel value."""
     import torch
     from bnv_fusion_tpu_torch.kernels import (seg_reduce_sorted,
                                               seg_reduce_sorted_torch)
@@ -147,7 +202,10 @@ def check_seg(name, keys, keys2, cnts, vals, u, sent, timed=False):
           f"max_abs_err={float(err.max()) if err.numel() else 0.0:.3e}"
           + (f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms" if timed else ""),
           flush=True)
-    return (float(err.max()) if err.numel() else 0.0), ms, plain_ms
+    n_bytes = nbytes(keys, keys2, cnts, vals, *k)
+    n_flops = cnts.numel() + vals.numel()
+    return ((float(err.max()) if err.numel() else 0.0), ms, plain_ms,
+            n_bytes, n_flops)
 
 
 def phase_kernels():
@@ -160,10 +218,10 @@ def phase_kernels():
     sent = 260 * 260 * 160          # n_vox of the bench scene at voxel 0.01
     res = {}
     # the main path's two calls per K=16 batch (fusion.py:611,681)
-    e1, ms1, pm1 = check_seg("seg_reduce stage 1", *sorted_stream(
+    e1, ms1, pm1, by1, fl1 = check_seg("seg_reduce stage 1", *sorted_stream(
         16, 307200, 1, 64, 7000, sent, True, g), u=65536, sent=sent,
         timed=True)
-    e2, ms2, pm2 = check_seg("seg_reduce stage 2", *sorted_stream(
+    e2, ms2, pm2, by2, fl2 = check_seg("seg_reduce stage 2", *sorted_stream(
         16, 524288, 1, 8, 110000, sent, False, g), u=116736, sent=sent,
         timed=True)
     # edge cases of tests/test_seg_reduce.py
@@ -171,21 +229,26 @@ def phase_kernels():
     k.fill_(100)
     c.zero_()
     v.zero_()
-    e3, _, _ = check_seg("seg_reduce all-sentinel", k, k2, c, v, 16, 100)
+    e3, *_ = check_seg("seg_reduce all-sentinel", k, k2, c, v, 16, 100)
     k = torch.arange(5000, dtype=torch.int32, device="cuda")[None].repeat(2, 1)
     c = torch.ones((2, 1, 5000), dtype=torch.int32, device="cuda")
     v = torch.randn((2, 2, 5000), generator=g, device="cuda")
-    e4, _, _ = check_seg("seg_reduce more segments than u", k, None, c, v,
+    e4, *_ = check_seg("seg_reduce more segments than u", k, None, c, v,
                          64, 1 << 16)
     k = torch.cat([torch.arange(100), torch.full((3000,), 500),
                    torch.arange(1000, 1996)]).to(torch.int32).cuda()[None]
     c = torch.randint(0, 5, (1, 1, 4096), generator=g, device="cuda",
                       dtype=torch.int32)
     v = torch.randn((1, 2, 4096), generator=g, device="cuda")
-    e5, _, _ = check_seg("seg_reduce segment over many blocks", k, None, c, v,
+    e5, *_ = check_seg("seg_reduce segment over many blocks", k, None, c, v,
                          1024, 1 << 20)
+    b1, b2 = bound(by1, fl1), bound(by2, fl2)
+    print(f"  seg_reduce bound: stage 1 {b1[0]:.3f} ms ({b1[1]}), stage 2 "
+          f"{b2[0]:.3f} ms ({b2[1]})", flush=True)
     res["seg_reduce_sorted"] = {"max_abs_err": max(e1, e2, e3, e4, e5),
-                                "ms": ms1 + ms2, "plain_ms": pm1 + pm2}
+                                "ms": ms1 + ms2, "plain_ms": pm1 + pm2,
+                                "bound_ms": b1[0] + b2[0],
+                                "bound_by": b1[1]}
 
     params = bnn.init_model(0, device="cuda", bias_std=BIAS_STD)
     errs, times = [], None
@@ -207,12 +270,179 @@ def phase_kernels():
                 params, local, feats, tw, VOXEL)),
                 median_ms(lambda: fused_corner_decode_torch(
                     params, local, feats, tw, VOXEL)))
+            # 8 corners x the decoder's FMAs (x2 flops) + the blend's
+            # scale, weight and add; the positional encoding's sin/cos
+            # run on the special-function units and are not counted
+            d = params["decoder"]
+            fmas = sum(d[k].numel() for k in ("w0", "w1", "w2", "w_out"))
+            dec_bound = bound(nbytes(local, feats, tw, a, *d.values()),
+                              n * 8 * (2 * fmas + 3))
         print(f"  fused_corner_decode N={n}: max_abs_err={err:.3e}"
               + (f" kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms"
                  if n == 262144 else ""), flush=True)
+    print(f"  fused_corner_decode bound: {dec_bound[0]:.3f} ms "
+          f"({dec_bound[1]})", flush=True)
     res["fused_corner_decode"] = {"max_abs_err": max(errs), "ms": times[0],
-                                  "plain_ms": times[1]}
+                                  "plain_ms": times[1],
+                                  "bound_ms": dec_bound[0],
+                                  "bound_by": dec_bound[1]}
     return res
+
+
+def phase_fused_mlp():
+    """FusedMLP driven once per network (its path: the public API), then
+    held against the plain version and timed.  Returns the kernels-line
+    entry, with the path's launches."""
+    import torch
+    from bnv_fusion_tpu_torch import nn as bnn
+    from bnv_fusion_tpu_torch.kernels import FusedMLP, _build, fused_mlp_torch
+
+    params = bnn.init_model(0, device="cuda", bias_std=BIAS_STD)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    enc, dec = FusedMLP(params["encoder"]), FusedMLP(params["decoder"])
+    x_enc = torch.randn((ENC_ROWS, 6), generator=g, device="cuda")
+    x_dec = torch.randn((DEC_ROWS, 17), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    y_enc, y_dec = enc(x_enc), dec(x_dec)
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["fused_mlp"]
+    if launches != 2:
+        raise AssertionError(f"FusedMLP launched fused_mlp {launches} times "
+                             "for 2 calls")
+
+    def check(name, mlp, prm, x, y=None):
+        y = mlp(x) if y is None else y
+        ref = fused_mlp_torch(prm, x)
+        torch.cuda.synchronize()
+        if y.shape != ref.shape:
+            raise AssertionError(f"fused_mlp {name}: shape {tuple(y.shape)} "
+                                 f"!= {tuple(ref.shape)}")
+        err = (y - ref).abs()
+        if bool((err > MLP_ATOL + MLP_RTOL * ref.abs()).any()):
+            raise AssertionError(f"fused_mlp {name}: max abs err "
+                                 f"{float(err.max()):.3e}")
+        return float(err.max())
+
+    errs = [check("encoder", enc, params["encoder"], x_enc, y_enc),
+            check("decoder", dec, params["decoder"], x_dec, y_dec),
+            check("ragged", enc, params["encoder"], x_enc[:3000 - 37]),
+            check("batched", enc, params["encoder"],
+                  torch.randn((7, 11, 6), generator=g, device="cuda"))]
+    out = {"launches": launches, "max_abs_err": max(errs)}
+    for name, mlp, prm, x, y in (("encoder", enc, params["encoder"], x_enc,
+                                  y_enc),
+                                 ("decoder", dec, params["decoder"], x_dec,
+                                  y_dec)):
+        ms = median_ms(lambda: mlp(x))
+        plain_ms = median_ms(lambda: fused_mlp_torch(prm, x))
+        fmas = sum(prm[k].numel() for k in ("w0", "w1", "w2", "w_out"))
+        b = bound(nbytes(x, y, *prm.values()), x.shape[0] * 2 * fmas)
+        print(f"  fused_mlp {name}: M={x.shape[0]} {x.shape[1]}->"
+              f"{y.shape[1]} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b[0]:.3f} ms ({b[1]})", flush=True)
+        if name == "encoder":
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                       bound_by=b[1])
+    print(f"  fused_mlp max_abs_err={out['max_abs_err']:.3e} over the "
+          f"encoder, decoder, ragged M=2963 and [7, 11, 6] inputs; "
+          f"launches on its path: {launches}", flush=True)
+    return out
+
+
+def phase_pretrain(tmp):
+    """Pretraining at the full model width: finite step losses, a falling
+    loss, loadable last.npz / best.npz."""
+    import numpy as np
+    from bnv_fusion_tpu_torch import train
+    from bnv_fusion_tpu_torch.checkpoint import load_state
+
+    out = train.run(PRETRAIN_OVERRIDES + [f"output_dir={tmp}"])
+    losses = np.asarray(out["trainer"].step_losses, np.float64)
+    if len(losses) != 32 or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"pretrain step losses: {losses}")
+    first, last = losses[:8].mean(), losses[-8:].mean()
+    if not last < first:
+        raise AssertionError(f"pretrain loss did not fall: first 8 "
+                             f"{first:.4f}, last 8 {last:.4f}")
+    for name in ("last.npz", "best.npz"):
+        params = load_state(os.path.join(out["out_dir"], name))["params"]
+        for net in ("encoder", "decoder"):
+            if not all(np.all(np.isfinite(v)) for v in params[net].values()):
+                raise AssertionError(f"{name}: non-finite {net} weights")
+    print(f"  pretrain: {len(losses)} steps, loss first 8 {first:.4f} -> "
+          f"last 8 {last:.4f}, best val {out['best']:.4f}; last.npz and "
+          f"best.npz load", flush=True)
+
+
+def phase_offline(tmp, params):
+    """test.py then the refiner at bench.py's operating point."""
+    import numpy as np
+    from bnv_fusion_tpu_torch import tables as tbl
+    from bnv_fusion_tpu_torch import test as offline, train
+    from bnv_fusion_tpu_torch.checkpoint import load_state
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.pipeline import NeuralMap
+
+    common = OFFLINE_OVERRIDES + [f"output_dir={tmp}"]
+    t0 = time.time()
+    fused = offline.run(common)
+    t_fuse = time.time() - t0
+    nmap, prefix = fused["nmap"], fused["prefix"]
+    if nmap.overflow != 0:
+        raise AssertionError(f"test.py table overflow {nmap.overflow}")
+    if fused["mesh"] is None:
+        raise AssertionError("test.py exported no mesh")
+    ref_over = ["model=fusion_refiner_model", "trainer.max_epochs=1",
+                f"model.sparse_volume_path={prefix}_sparse_volume.npz",
+                f"model.tsdf_prior_path={prefix}_tsdf.npy"] + common
+    t0 = time.time()
+    refined = train.run(ref_over)
+    t_refine = time.time() - t0
+    rmap = refined["refiner"].nmap
+
+    saved = load_state(prefix + "_sparse_volume.npz")
+    loaded = NeuralMap(rmap.dimensions, load_config(ref_over), params)
+    loaded.load_volume(prefix + "_sparse_volume.npz")
+
+    def by_key(keys, *cols):
+        order = np.lexsort(np.asarray(keys).T[::-1])
+        return [np.asarray(keys)[order]] + [np.asarray(c)[order]
+                                            for c in cols]
+
+    want = by_key(saved["active_coordinates"], saved["features"],
+                  saved["weights"], saved["num_hits"])
+    k, f, w, h, _ = tbl.active_entries(loaded.table)
+    for a, b, what in zip(by_key(k, f, w, h), want,
+                          ("keys", "features", "weights", "hits")):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"loaded table {what} differ from the "
+                                 "saved map")
+    rk = tbl.active_entries(rmap.table, with_features=False)[0]
+    if not np.array_equal(by_key(rk)[0], want[0]):
+        raise AssertionError("the refiner's table keys differ from the "
+                             "saved map")
+    losses = np.asarray(rmap.optimize_losses, np.float64)
+    if len(losses) != len(rmap.frames) or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"refiner losses: {losses}")
+    if rmap.overflow != 0:
+        raise AssertionError(f"refiner table overflow {rmap.overflow}")
+    wd = refined["out_dir"]
+    head, n_v, n_f = read_ply_header(os.path.join(wd, "refined_0.ply"))
+    if "binary_little_endian" not in head or n_v <= 0 or n_f <= 0:
+        raise AssertionError(f"refined_0.ply is not a non-empty binary PLY "
+                             f"({n_v} vertices, {n_f} faces)")
+    if not os.path.exists(os.path.join(wd, "refined_sparse_volume.npz")):
+        raise AssertionError("refined_sparse_volume.npz was not written")
+    s = np.asarray(nmap.stats)
+    print(f"  test.py: {len(nmap.frames)} frames fused one at a time, "
+          f"{len(want[0])} voxels, {len(fused['mesh'].vertices)} mesh "
+          f"vertices, pts/voxel median {np.median(s):.1f}; {t_fuse:.1f} s",
+          flush=True)
+    print(f"  refiner: loaded table == saved map by voxel key; "
+          f"{len(losses)} losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"refined_0.ply {n_v} vertices, {n_f} faces; {t_refine:.1f} s",
+          flush=True)
 
 
 def read_ply_header(path):
@@ -293,7 +523,9 @@ def main() -> int:
           flush=True)
 
     print("phase kernels vs plain versions:", flush=True)
+    t0 = time.time()
     kres = phase_kernels()
+    print(f"phase kernels: {time.time() - t0:.1f} s", flush=True)
 
     print("phase e2e: run_e2e at the bench operating point", flush=True)
     from bnv_fusion_tpu_torch import run_e2e
@@ -349,17 +581,49 @@ def main() -> int:
             return fail("table features are not finite")
         print(f"  final.ply: {n_v} vertices, {n_f} faces", flush=True)
         phase_reference(nmap)
+        print(f"phase e2e: {time.time() - t0:.1f} s (reference check "
+              "included)", flush=True)
+        del out, nmap
+
+        print("phase fused_mlp: FusedMLP vs the plain MLP", flush=True)
+        t0 = time.time()
+        kres["fused_mlp"] = phase_fused_mlp()
+        print(f"phase fused_mlp: {time.time() - t0:.1f} s", flush=True)
+
+        print("phase pretrain: train.py on synthetic patches", flush=True)
+        t0 = time.time()
+        phase_pretrain(os.path.join(tmp, "pretrain"))
+        print(f"phase pretrain: {time.time() - t0:.1f} s", flush=True)
+
+        print("phase offline: test.py -> train.py refiner", flush=True)
+        _build.LAUNCHES.clear()
+        t0 = time.time()
+        phase_offline(os.path.join(tmp, "offline"), params)
+        off_launches = dict(_build.LAUNCHES)
+        print(f"  launches in the offline run: {off_launches}", flush=True)
+        if off_launches.get("fused_corner_decode", 0) <= 0:
+            return fail("the offline flow never launched fused_corner_decode")
+        print(f"phase offline: {time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     src = {"seg_reduce_sorted": ("bnv_fusion_tpu_torch/csrc/seg_reduce.cu",
                                  "bnv_fusion_tpu/kernels/seg_reduce.py:184"),
            "fused_corner_decode": ("bnv_fusion_tpu_torch/csrc/fused_decode.cu",
-                                   "bnv_fusion_tpu/kernels/fused_decode.py:64")}
+                                   "bnv_fusion_tpu/kernels/fused_decode.py:64"),
+           "fused_mlp": ("bnv_fusion_tpu_torch/csrc/fused_mlp.cu",
+                         "bnv_fusion_tpu/kernels/fused_mlp.py:79")}
+    launches["fused_mlp"] = kres["fused_mlp"]["launches"]
+    # library_ms: no single PyTorch call computes any of the three (the MLP
+    # is four F.linear calls and activations; torch.segment_reduce does not
+    # rank keys into a compacted width)
     kernels = [{"name": n, "route": "cuda", "source": src[n][0],
                 "replaces": src[n][1], "launches": launches[n],
                 "max_abs_err": kres[n]["max_abs_err"], "ms": kres[n]["ms"],
-                "plain_ms": kres[n]["plain_ms"]} for n in src]
+                "plain_ms": kres[n]["plain_ms"],
+                "bound_ms": kres[n]["bound_ms"],
+                "bound_by": kres[n]["bound_by"], "library_ms": None}
+               for n in src]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -215,6 +215,15 @@ from bnv_fusion_tpu_torch.config import load_config
 from bnv_fusion_tpu_torch.datasets import get_dataset
 from bnv_fusion_tpu_torch.pipeline import _frame_points
 import bnv_fusion_tpu_torch.run_e2e, bnv_fusion_tpu_torch.kernels
+import bnv_fusion_tpu_torch.train, bnv_fusion_tpu_torch.test
+import bnv_fusion_tpu_torch.models.local_point_fusion
+import bnv_fusion_tpu_torch.models.fusion_refiner
+import bnv_fusion_tpu_torch.dense_grid, bnv_fusion_tpu_torch.utils.vis
+from bnv_fusion_tpu_torch.kernels.fused_mlp import FusedMLP
+from bnv_fusion_tpu_torch.models import get_model
+assert get_model("lit_fusion_pointnet") and get_model("lit_fusion_refiner")
+enc = nn.init_model(0)["encoder"]
+assert FusedMLP(enc)(torch.ones(3, 6)).shape == (3, 8)
 cfg = load_config(["dataset.img_res=[30,40]", "dataset.num_images=2"])
 f = get_dataset(cfg, "val")[0]
 t = torch.as_tensor
