@@ -499,12 +499,14 @@ def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
                   sdf_delta: Optional[torch.Tensor] = None, n_xyz=None,
                   is_coords: bool = False, use_fused_kernel: bool = False,
                   masked_fill: Optional[float] = None,
-                  layout: str = "rows") -> torch.Tensor:
+                  layout: str = "rows",
+                  packed_decoder: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """SDF at world points (or voxel coords) [M, 3] via 8-corner decode +
     blend: corners under min_pts weight mask the point (+voxel_size, or
     ``masked_fill``), the nearest-sampled prior is added.  With
     ``use_fused_kernel`` the PE + MLP + blend run in ``fused_corner_decode``
-    (forward only)."""
+    (forward only), on ``packed_decoder`` (its ``packed``) where given."""
     if layout != "rows":
         raise NotImplementedError(
             "decode_layout=fm is not ported yet (ROADMAP Queue 1 item 8)")
@@ -518,7 +520,8 @@ def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
                         torch.zeros((), device=features.device))
     sdf = fused_corner_decode(params, prep.local.contiguous(),
                               feats.reshape(m, 8, -1).contiguous(),
-                              prep.tw.contiguous(), voxel_size)
+                              prep.tw.contiguous(), voxel_size,
+                              packed=packed_decoder)
     mask = torch.amin(prep.w, dim=-1) >= min_pts_in_grid
     fill = voxel_size if masked_fill is None else masked_fill
     sdf = torch.where(mask, sdf, torch.full((), fill, device=sdf.device))

@@ -3,7 +3,8 @@ ctypes), and count their launches.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled for
 Hopper (``sm_90a``) into ``bnv_fusion_tpu_torch/_build/lib<name>.so`` at first
-use; a library newer than its source is reused.  ``build()`` starts one nvcc
+use; a library newer than its source and than every ``csrc/*.cuh`` header
+is reused.  ``build()`` starts one nvcc
 per source at once, so a fresh checkout pays the slowest compile, not the
 sum.  Nothing here runs when a module is imported.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -32,6 +34,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -51,8 +54,13 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """A library is stale when its source or any shared header in csrc/
+    (which a source may include) is newer than it."""
     src, lib, _ = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [src] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in deps)
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
@@ -94,6 +102,36 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _LIBS[name] = ctypes.CDLL(_paths(name)[1])
         return _LIBS[name]
+
+
+def function(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``entry`` of kernel library ``name``, returning an
+    int, with its argument types set once (binding it on every call costs
+    host time on the launch path)."""
+    key = (name, entry)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(load(name), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FNS[key] = fn
+    return fn
+
+
+def call(fn, device, *args) -> int:
+    """Run a C launcher with ``args`` and the current stream of ``device``
+    (a torch.device); the launchers use the current CUDA device, so another
+    device is made current around the call."""
+    import torch
+
+    def run():
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return fn(*args, ctypes.c_void_p(stream))
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return run()
+    with torch.cuda.device(device):
+        return run()
 
 
 def check_cuda_tensor(t, name: str, dtype, ndim: int, device) -> None:

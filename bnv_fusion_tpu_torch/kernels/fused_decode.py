@@ -5,12 +5,16 @@ the Pallas TPU kernel at :63-99).  ``fused_corner_decode`` launches the
 hand-written CUDA kernel (csrc/fused_decode.cu) on CUDA tensors and runs
 ``fused_corner_decode_torch`` on CPU tensors; any other device raises.
 Forward only: the optimization loss keeps the plain decode for autograd.
+The kernel runs the hidden layers on the tensor cores in 3xTF32; the weight
+packing it reads (hi/lo split, row order, fragment order) is built here, in
+``pack_decoder_tc``, so that the CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -44,20 +48,85 @@ def fused_corner_decode_torch(params: Dict[str, Any], local: torch.Tensor,
     return torch.sum(alpha * voxel_size * tw, dim=-1)
 
 
-def _pack_decoder(dec: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.cat([dec["w0"].reshape(-1), dec["b0"].reshape(-1),
-                      dec["w1"].reshape(-1), dec["b1"].reshape(-1),
-                      dec["w2"].reshape(-1), dec["b2"].reshape(-1),
-                      dec["w_out"].reshape(-1), dec["b_out"].reshape(-1)]
-                     ).to(torch.float32).contiguous()
+# Tensor-core packing (csrc/fused_decode.cu, csrc/mlp_tc.cuh).  Layer 0's
+# 24 input columns (17 padded) in the kernel's order: lane t of a row owns
+# columns t and t+4 (latents t, t+4), 8+t (l_t), 12+t (sin l_t), 16+t
+# (cos l_t) and 20+t (padding); entry = the row of the true w0, -1 = zero.
+W0_ROWS = (9, 10, 11, 12, 13, 14, 15, 16,
+           0, 1, 2, -1, 3, 4, 5, -1,
+           6, 7, 8, -1, -1, -1, -1, -1)
+# Inside each block of 8, the A fragment's column kk is the accumulator's
+# column PERM[kk] (mlp_tc.cuh), so w1's and w2's rows are permuted so.
+PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tc_layer_weights(dec: Dict[str, torch.Tensor]):
+    """The three hidden layers' weights as the kernel multiplies them:
+    w0 [24, 64] in W0_ROWS order with zero padding rows, w1 and w2
+    [64, 64] with their rows permuted by PERM inside each block of 8."""
+    w0 = dec["w0"].to(torch.float32)
+    rows = torch.tensor([max(r, 0) for r in W0_ROWS], device=w0.device)
+    keep = torch.tensor([r >= 0 for r in W0_ROWS], device=w0.device)
+    w0l = torch.where(keep[:, None], w0[rows], torch.zeros_like(w0[rows]))
+    perm = torch.tensor([8 * (i // 8) + PERM[i % 8] for i in range(_HIDDEN)],
+                        device=w0.device)
+    return [w0l, dec["w1"].to(torch.float32)[perm],
+            dec["w2"].to(torch.float32)[perm]]
+
+
+def split_tf32(x: torch.Tensor):
+    """x -> (hi, lo) with hi = tf32(x), lo = tf32(x - hi), both rounded to
+    nearest with ties away from zero (PTX cvt.rna.tf32.f32): the low 13 of
+    f32's 23 mantissa bits are rounded off."""
+    def rna(v):
+        b = v.contiguous().view(torch.int32)
+        return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x.to(torch.float32))
+    return hi, rna(x.to(torch.float32) - hi)
+
+
+def tc_fragments(w: torch.Tensor) -> torch.Tensor:
+    """[K, 64] (K a multiple of 8) -> [K/8, 8, 32, 4]: for k-step j, n-tile
+    n and lane = 4g + t, the float4 (hi b0, hi b1, lo b0, lo b1) with
+    b0 = w[8j+t, 8n+g], b1 = w[8j+t+4, 8n+g] (PTX's B fragment of
+    mma.m16n8k8 .tf32)."""
+    k = w.shape[0]
+    hi, lo = split_tf32(w)
+    x = torch.stack([hi, lo])                      # [hl, K, 64]
+    x = x.reshape(2, k // 8, 2, 4, 8, 8)           # [hl, j, half, t, n, g]
+    return x.permute(1, 4, 5, 3, 0, 2).reshape(k // 8, 8, 32, 4)
+
+
+def pack_decoder_tc(dec: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The decoder in csrc/fused_decode.cu's layout: the fragments of the
+    three hidden layers (tc_layer_weights, tc_fragments), then b0, b1, b2,
+    w_out, b_out in f32, zero-padded to whole float4s (the kernel copies it
+    to shared memory in 16-byte loads).  Pack once per weight set and pass
+    the result to ``fused_corner_decode``."""
+    parts = [tc_fragments(w).reshape(-1) for w in tc_layer_weights(dec)]
+    parts += [dec[k].reshape(-1).to(torch.float32)
+              for k in ("b0", "b1", "b2", "w_out", "b_out")]
+    flat = torch.cat(parts)
+    return torch.cat([flat, flat.new_zeros(-flat.numel() % 4)])
+
+
+@functools.cache
+def packed_size() -> int:
+    """Floats in the packed layout csrc/fused_decode.cu reads (its kTotal),
+    from the built library."""
+    return _build.function("fused_decode",
+                           "bnv_fused_corner_decode_packed_size", [])()
 
 
 def fused_corner_decode(params: Dict[str, Any], local: torch.Tensor,
                         feats: torch.Tensor, tw: torch.Tensor,
-                        voxel_size: float) -> torch.Tensor:
+                        voxel_size: float,
+                        packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Blended SDF for corner data (local [N,8,3], feats [N,8,F], tw [N,8])
     -> [N]; any N.  Matches decoder_apply + trilinear blend (num_pe_fns=1,
-    3 hidden layers)."""
+    3 hidden layers).  ``packed`` is ``pack_decoder_tc(params["decoder"])``
+    on the inputs' device, built once by a caller that decodes many batches
+    with fixed weights; without it the kernel path packs on every call."""
     if local.device.type == "cpu":
         return fused_corner_decode_torch(params, local, feats, tw, voxel_size)
     if local.device.type != "cuda":
@@ -76,25 +145,28 @@ def fused_corner_decode(params: Dict[str, Any], local: torch.Tensor,
             tuple(tw.shape) != (n, 8):
         raise ValueError(f"fused_corner_decode: bad shapes {tuple(local.shape)}"
                          f" {tuple(feats.shape)} {tuple(tw.shape)}")
-    packed = _pack_decoder(params["decoder"]).to(dev)
-    if packed.numel() != (9 + f) * _HIDDEN + 2 * _HIDDEN * _HIDDEN + \
-            4 * _HIDDEN + 1:
-        raise ValueError("fused_corner_decode: decoder width does not match "
-                         f"the latent width {f}")
+    if f != _LATENT:
+        raise ValueError(f"fused_corner_decode: latent width {f}, the kernel "
+                         f"is built for {_LATENT}")
     if not 0 < n < 2 ** 31:
         raise ValueError(f"fused_corner_decode: unsupported point count {n}")
+    if packed is None:
+        packed = pack_decoder_tc(params["decoder"]).to(dev)
+    _build.check_cuda_tensor(packed, "packed", torch.float32, 1, dev)
+    if packed.numel() != packed_size() or packed.data_ptr() % 16:
+        raise ValueError(f"fused_corner_decode: packed must be "
+                         f"pack_decoder_tc's {packed_size()} floats, 16-byte "
+                         f"aligned; got {packed.numel()} at "
+                         f"{packed.data_ptr():#x}")
     out = torch.empty((n,), dtype=torch.float32, device=dev)
 
-    lib = _build.load("fused_decode")
-    fn = lib.bnv_fused_corner_decode
-    fn.restype = ctypes.c_int
     P = ctypes.c_void_p
-    fn.argtypes = [P, P, P, P, ctypes.c_int, ctypes.c_float, ctypes.c_int, P, P]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(P(local.data_ptr()), P(feats.data_ptr()), P(tw.data_ptr()),
-                  P(packed.data_ptr()), f, float(voxel_size), n,
-                  P(out.data_ptr()), P(stream))
+    fn = _build.function("fused_decode", "bnv_fused_corner_decode",
+                         [P, P, P, P, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_int, P, P])
+    code = _build.call(fn, dev, P(local.data_ptr()), P(feats.data_ptr()),
+                       P(tw.data_ptr()), P(packed.data_ptr()), f,
+                       float(voxel_size), n, P(out.data_ptr()))
     _build.raise_on_error(code, "fused_corner_decode")
     _build.LAUNCHES["fused_corner_decode"] += 1
     return out

@@ -95,25 +95,21 @@ def fused_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
     if packed is None:
         packed = pack_params(params, x.device)
     _build.check_cuda_tensor(packed, "packed", torch.float32, 1, x.device)
-    lib = _build.load("fused_mlp")
-    size = lib.bnv_fused_mlp_packed_size
-    size.restype = ctypes.c_int
-    size.argtypes = [ctypes.c_int, ctypes.c_int]
-    if packed.numel() != size(din, dout):
+    size = _build.function("fused_mlp", "bnv_fused_mlp_packed_size",
+                           [ctypes.c_int, ctypes.c_int])(din, dout)
+    if packed.numel() != size:
         raise ValueError(f"fused_mlp: packed weights hold {packed.numel()} "
-                         f"floats, the kernel expects {size(din, dout)}")
+                         f"floats, the kernel expects {size}")
     out = torch.empty((m, dout), dtype=torch.float32, device=x.device)
     if m == 0:
         return out.reshape(lead + (dout,))
 
-    fn = lib.bnv_fused_mlp
-    fn.restype = ctypes.c_int
     P = ctypes.c_void_p
-    fn.argtypes = [P, P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, P, P]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(P(x2.data_ptr()), P(packed.data_ptr()), din, dout, m,
-                  P(out.data_ptr()), P(stream))
+    fn = _build.function("fused_mlp", "bnv_fused_mlp",
+                         [P, P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                          P, P])
+    code = _build.call(fn, x.device, P(x2.data_ptr()), P(packed.data_ptr()),
+                       din, dout, m, P(out.data_ptr()))
     _build.raise_on_error(code, "fused_mlp")
     _build.LAUNCHES["fused_mlp"] += 1
     return out.reshape(lead + (dout,))

@@ -3,18 +3,27 @@
 Counterpart of bnv_fusion_tpu/kernels/seg_reduce.py (``seg_reduce_sorted``,
 the Pallas TPU kernel at :182-302).  ``seg_reduce_sorted`` launches the
 hand-written CUDA kernel (csrc/seg_reduce.cu) on CUDA tensors and runs
-``seg_reduce_sorted_torch`` on CPU tensors; any other device raises.
+``seg_reduce_sorted_torch`` on CPU tensors; any other device raises.  The
+kernel streams each payload plane in tiles of ``tile_rows()`` rows, sums the
+segments that end inside a tile there, and adds the open sums of segments
+that cross tile edges in a fix-up launch (its source has the design).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from bnv_fusion_tpu_torch.kernels import _build
 
-_BLOCK = 256  # rows per block of the count/emit passes (csrc/seg_reduce.cu)
+
+@functools.cache
+def tile_rows() -> int:
+    """Rows per tile of csrc/seg_reduce.cu (its kT), from the built library;
+    sizes the wrapper's scratch."""
+    return _build.function("seg_reduce", "bnv_seg_reduce_tile_rows", [])()
 
 
 def seg_reduce_sorted_torch(keys, cnts, vals, u: int, sent: int, keys2=None):
@@ -97,13 +106,17 @@ def seg_reduce_sorted(keys, cnts, vals, u: int, sent: int, keys2=None):
         _build.check_cuda_tensor(keys2, "keys2", torch.int32, 2, dev)
         if tuple(keys2.shape) != (B, M):
             raise ValueError("seg_reduce_sorted: keys2 shape != keys shape")
-    if not (0 < M < 2 ** 31 and 0 < u < 2 ** 31 and B < 65536):
+    tile = tile_rows()
+    if not (0 < M < 2 ** 31 - tile and 0 < u < 2 ** 31 and B < 65536):
         raise ValueError(f"seg_reduce_sorted: unsupported sizes B={B} M={M} "
                          f"u={u}")
-    G = (M + _BLOCK - 1) // _BLOCK
-    counts = torch.empty((B, G), dtype=torch.int32, device=dev)
-    offsets = torch.empty((B, G), dtype=torch.int32, device=dev)
-    end_pos = torch.empty((B, u), dtype=torch.int32, device=dev)
+    n_tiles = (M + tile - 1) // tile
+    # scratch, one allocation: per-tile end counts and first ranks, and each
+    # tile's trailing open sums (int and float channels as 32-bit words)
+    scratch = torch.empty((B * n_tiles * (2 + n_int + n_float),),
+                          dtype=torch.int32, device=dev)
+    counts, offsets, partial = scratch.split(
+        [B * n_tiles, B * n_tiles, B * n_tiles * (n_int + n_float)])
     keys_u = torch.empty((B, u), dtype=torch.int32, device=dev)
     keys2_u = (torch.empty((B, u), dtype=torch.int32, device=dev)
                if keys2 is not None else None)
@@ -111,19 +124,16 @@ def seg_reduce_sorted(keys, cnts, vals, u: int, sent: int, keys2=None):
     sums_u = torch.empty((B, u, n_float), dtype=torch.float32, device=dev)
     n_seg = torch.empty((B,), dtype=torch.int32, device=dev)
 
-    lib = _build.load("seg_reduce")
-    fn = lib.bnv_seg_reduce_sorted
-    fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P, P, P]
+    fn = _build.function("seg_reduce", "bnv_seg_reduce_sorted",
+                         [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P,
+                          P, P])
     ptr = (lambda t: ctypes.c_void_p(t.data_ptr()) if t is not None
            else ctypes.c_void_p(0))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(ptr(keys), ptr(keys2), ptr(cnts), ptr(vals), B, M, n_int,
-                  n_float, int(u), int(sent), ptr(counts), ptr(offsets),
-                  ptr(end_pos), ptr(keys_u), ptr(keys2_u), ptr(cnts_u),
-                  ptr(sums_u), ptr(n_seg), ctypes.c_void_p(stream))
+    code = _build.call(fn, dev, ptr(keys), ptr(keys2), ptr(cnts), ptr(vals),
+                       B, M, n_int, n_float, int(u), int(sent), ptr(counts),
+                       ptr(offsets), ptr(partial), ptr(keys_u), ptr(keys2_u),
+                       ptr(cnts_u), ptr(sums_u), ptr(n_seg))
     _build.raise_on_error(code, "seg_reduce_sorted")
     _build.LAUNCHES["seg_reduce_sorted"] += 1
     return keys_u, keys2_u, cnts_u, sums_u, n_seg

@@ -24,6 +24,7 @@ from bnv_fusion_tpu_torch import nn as bnn
 from bnv_fusion_tpu_torch import optimize, table_dense, tsdf
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel as vx
+from bnv_fusion_tpu_torch.kernels import fused_decode
 
 
 def resolve_device(device_type) -> torch.device:
@@ -466,6 +467,11 @@ class NeuralMap:
         active = keys[gate]
         if len(active) == 0:
             return None
+        # the weights are fixed while meshing: pack them for the kernel once
+        packed = None
+        if use_fused and fused_decode.fused_decode_available(self.params):
+            with torch.no_grad():
+                packed = fused_decode.pack_decoder_tc(self.params["decoder"])
 
         def decode_fn(batch: np.ndarray) -> np.ndarray:
             coords = torch.as_tensor(batch, device=self.device)
@@ -475,7 +481,8 @@ class NeuralMap:
                     self.bound_min, self.voxel_size, self.min_pts_in_grid,
                     sdf_delta=sdf_delta if use_delta else None,
                     n_xyz=self.n_xyz, is_coords=True,
-                    use_fused_kernel=use_fused, masked_fill=float("nan"))
+                    use_fused_kernel=use_fused, masked_fill=float("nan"),
+                    packed_decoder=packed)
             return out.to(fetch_dt).to(torch.float32).cpu().numpy()
 
         return mesh_mod.extract_mesh(

@@ -34,9 +34,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
      binary refined_0.ply, the saved refined map, no overflow, and
      fused_corner_decode launched.
 Each phase prints its wall time; the kernels line gives each kernel's
-launches on its path, error, times and bound (the larger of bytes over
-3.35 TB/s and flops over 67 TFLOP/s, the H100 SXM's published HBM rate and
-f32 rate outside the tensor cores).
+launches on its path, error, times and bound: the larger of the bytes the
+function must move over 3.35 TB/s and its operations over the peak rate of
+the units they run on (H100 SXM published peaks).  For seg_reduce_sorted
+and fused_mlp those are f32 adds and FMAs at 67 TFLOP/s.  For
+fused_corner_decode, whose hidden layers run on the tensor cores in
+3xTF32, they are three TF32 products of the hidden layers at 495 TFLOP/s
+(the 64->1 output layer and the blend at 67 TFLOP/s are ~1% of that); the
+bound of the same work on f32 FMAs alone is printed beside it.
+The seg-reduce checks include edge cases at the kernel's own tile
+(tile_rows() rows): a segment over >= 3 tiles with a run of tiles without
+an end, M not a multiple of the tile (with M % 4 != 0, the scalar-load
+path, and M % 4 == 0), and two launches on the stage-1 inputs that must
+give identical bits.
 Weights: the port's seeded init_model.  The kernel checks draw its biases
 from N(0, 0.1^2) (bias_std), since zero biases would hide a decode kernel
 that dropped them or read them from the wrong offsets; the e2e run keeps
@@ -85,10 +95,11 @@ MLP_ATOL = MLP_RTOL = 1e-4
 ENC_ROWS = 480 * 640 * 8          # profiling/profile_fused_mlp.py:16
 DEC_ROWS = (1 << 18) * 8          # one mesh-lattice batch, 8 corners each
 
-# H100 SXM published peaks (NVIDIA datasheet): HBM and f32 FMA
-# outside the tensor cores
+# H100 SXM published peaks (NVIDIA datasheet): HBM, f32 FMA outside the
+# tensor cores, dense TF32 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 # the offline flow at bench.py's operating point (bench.py:59-84), frames
 # fused one at a time (test.py), then refined with the fused mesh decode
@@ -128,11 +139,12 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def bound(n_bytes: float, n_flops: float):
-    """(least time in ms, what bounds it) for work that must move n_bytes
-    and do n_flops f32 operations."""
+def bound(n_bytes: float, n_flops: float, n_tf32_flops: float = 0.0):
+    """(least time in ms, what bounds it) for work that must move n_bytes,
+    do n_flops f32 operations on the FMA units and n_tf32_flops on the
+    tensor cores (the two kinds of unit run side by side)."""
     t_mem = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    t_ops = max(n_flops / PEAK_F32_FLOPS, n_tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -212,15 +224,31 @@ def phase_kernels():
     import torch
     from bnv_fusion_tpu_torch import nn as bnn
     from bnv_fusion_tpu_torch.kernels import (fused_corner_decode,
-                                              fused_corner_decode_torch)
+                                              fused_corner_decode_torch,
+                                              seg_reduce_sorted)
+    from bnv_fusion_tpu_torch.kernels.fused_decode import pack_decoder_tc
+    from bnv_fusion_tpu_torch.kernels.seg_reduce import tile_rows
+
+    TILE = tile_rows()
 
     g = torch.Generator(device="cuda").manual_seed(0)
     sent = 260 * 260 * 160          # n_vox of the bench scene at voxel 0.01
     res = {}
     # the main path's two calls per K=16 batch (fusion.py:611,681)
-    e1, ms1, pm1, by1, fl1 = check_seg("seg_reduce stage 1", *sorted_stream(
-        16, 307200, 1, 64, 7000, sent, True, g), u=65536, sent=sent,
-        timed=True)
+    s1 = sorted_stream(16, 307200, 1, 64, 7000, sent, True, g)
+    e1, ms1, pm1, by1, fl1 = check_seg("seg_reduce stage 1", *s1, u=65536,
+                                       sent=sent, timed=True)
+    # determinism: no atomics, so two launches give the same bits
+    keys, keys2, cnts, vals = s1
+    r1 = seg_reduce_sorted(keys, cnts, vals, 65536, sent, keys2=keys2)
+    r2 = seg_reduce_sorted(keys, cnts, vals, 65536, sent, keys2=keys2)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(r1, r2)):
+        raise AssertionError("seg_reduce stage 1: two launches differ")
+    print("  seg_reduce stage 1: two launches give identical bits",
+          flush=True)
+    del s1, keys, keys2, cnts, vals, r1, r2
     e2, ms2, pm2, by2, fl2 = check_seg("seg_reduce stage 2", *sorted_stream(
         16, 524288, 1, 8, 110000, sent, False, g), u=116736, sent=sent,
         timed=True)
@@ -242,22 +270,50 @@ def phase_kernels():
     v = torch.randn((1, 2, 4096), generator=g, device="cuda")
     e5, *_ = check_seg("seg_reduce segment over many blocks", k, None, c, v,
                          1024, 1 << 20)
+    # at the kernel's tile T: a segment from row T-50 to row 4T+9 (tiles 1-3
+    # hold no end, tiles 0 and 4 do), M = 5T + 123 (not a multiple of T nor
+    # of 4: scalar loads) and 5T + 124 (16-byte loads), two key rows
+    errs = []
+    for m_rows in (5 * TILE + 123, 5 * TILE + 124):
+        runs = ([7] * ((TILE - 50) // 7) + [(TILE - 50) % 7, 3 * TILE + 60]
+                + [5] * 80)
+        seg = torch.repeat_interleave(
+            torch.arange(len(runs), device="cuda") * 2,
+            torch.tensor(runs, device="cuda"))
+        k = torch.full((2, m_rows), 1 << 20, dtype=torch.int32, device="cuda")
+        k2 = torch.zeros((2, m_rows), dtype=torch.int32, device="cuda")
+        k[:, :seg.numel()] = seg.to(torch.int32)
+        k2[:, :seg.numel()] = (seg % 3).to(torch.int32)
+        c = torch.zeros((2, 2, m_rows), dtype=torch.int32, device="cuda")
+        v = torch.zeros((2, 9, m_rows), dtype=torch.float32, device="cuda")
+        c[:, :, :seg.numel()] = torch.randint(
+            0, 100, (2, 2, seg.numel()), generator=g, device="cuda",
+            dtype=torch.int32)
+        v[:, :, :seg.numel()] = torch.randn((2, 9, seg.numel()), generator=g,
+                                            device="cuda")
+        e, *_ = check_seg(f"seg_reduce long segment over 5 tiles, M={m_rows}",
+                          k, k2, c, v, 512, 1 << 20)
+        errs.append(e)
+    e6 = max(errs)
     b1, b2 = bound(by1, fl1), bound(by2, fl2)
     print(f"  seg_reduce bound: stage 1 {b1[0]:.3f} ms ({b1[1]}), stage 2 "
           f"{b2[0]:.3f} ms ({b2[1]})", flush=True)
-    res["seg_reduce_sorted"] = {"max_abs_err": max(e1, e2, e3, e4, e5),
+    res["seg_reduce_sorted"] = {"max_abs_err": max(e1, e2, e3, e4, e5, e6),
                                 "ms": ms1 + ms2, "plain_ms": pm1 + pm2,
                                 "bound_ms": b1[0] + b2[0],
                                 "bound_by": b1[1]}
 
     params = bnn.init_model(0, device="cuda", bias_std=BIAS_STD)
+    # packed once, as the mesh path packs once per weight set; the ragged
+    # batch leaves the packing to the wrapper
+    packed = pack_decoder_tc(params["decoder"])
     errs, times = [], None
-    for n in (262144, 262144 - 37):
+    for n, pk in ((262144, packed), (262144 - 37, None)):
         local = torch.rand((n, 8, 3), generator=g, device="cuda") * 2 - 1
         feats = torch.randn((n, 8, 8), generator=g, device="cuda")
         tw = torch.rand((n, 8), generator=g, device="cuda")
         tw = tw / tw.sum(-1, keepdim=True)
-        a = fused_corner_decode(params, local, feats, tw, VOXEL)
+        a = fused_corner_decode(params, local, feats, tw, VOXEL, pk)
         b = fused_corner_decode_torch(params, local, feats, tw, VOXEL)
         torch.cuda.synchronize()
         err = float((a - b).abs().max())
@@ -267,21 +323,28 @@ def phase_kernels():
         errs.append(err)
         if times is None:
             times = (median_ms(lambda: fused_corner_decode(
-                params, local, feats, tw, VOXEL)),
+                params, local, feats, tw, VOXEL, packed)),
                 median_ms(lambda: fused_corner_decode_torch(
                     params, local, feats, tw, VOXEL)))
-            # 8 corners x the decoder's FMAs (x2 flops) + the blend's
-            # scale, weight and add; the positional encoding's sin/cos
-            # run on the special-function units and are not counted
+            # per corner: the hidden layers' multiply-adds (x2 flops) on
+            # the tensor cores, three TF32 products each (3xTF32); the
+            # output layer and the blend's scale, weight and add on the
+            # FMA units; the positional encoding's sin/cos run on the
+            # special-function units and are not counted.  fma_bound is
+            # the same work on f32 FMAs alone (the earlier design's bound)
             d = params["decoder"]
-            fmas = sum(d[k].numel() for k in ("w0", "w1", "w2", "w_out"))
-            dec_bound = bound(nbytes(local, feats, tw, a, *d.values()),
-                              n * 8 * (2 * fmas + 3))
+            hidden = sum(d[k].numel() for k in ("w0", "w1", "w2"))
+            n_bytes = nbytes(local, feats, tw, a, *d.values())
+            dec_bound = bound(n_bytes, n * 8 * (2 * d["w_out"].numel() + 3),
+                              n * 8 * 3 * 2 * hidden)
+            fma_bound = bound(n_bytes, n * 8 * (2 * (
+                hidden + d["w_out"].numel()) + 3))
         print(f"  fused_corner_decode N={n}: max_abs_err={err:.3e}"
               + (f" kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms"
                  if n == 262144 else ""), flush=True)
     print(f"  fused_corner_decode bound: {dec_bound[0]:.3f} ms "
-          f"({dec_bound[1]})", flush=True)
+          f"({dec_bound[1]}, 3xTF32 on the tensor cores); on f32 FMAs "
+          f"alone {fma_bound[0]:.3f} ms ({fma_bound[1]})", flush=True)
     res["fused_corner_decode"] = {"max_abs_err": max(errs), "ms": times[0],
                                   "plain_ms": times[1],
                                   "bound_ms": dec_bound[0],
