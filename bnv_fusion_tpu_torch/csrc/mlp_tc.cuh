@@ -1,16 +1,20 @@
-// A 64-wide ReLU MLP layer on Hopper's tensor cores in 3xTF32, for one warp
-// holding MT tiles of 16 rows in registers.  Shared by the kernels whose
-// hidden layers are the tcnn decoder's 64 x 64 products
-// (fused_decode.cu; fused_mlp.cu is to follow).
+// A ReLU MLP layer of 8 * NT outputs (64 for the hidden layers) on
+// Hopper's tensor cores in 3xTF32, for one warp holding MT tiles of 16 rows
+// in registers.  Shared by the kernels built on the tcnn MLP's 64-wide
+// layers: fused_decode.cu (its three hidden layers) and fused_mlp.cu (all
+// four layers; the output layer of dout <= 16 as NT = 1 or 2 n-tiles).
+// kernels/mlp_tc.py is the Python side: the weights' split, permutation and
+// fragment order.
 //
 // Arithmetic.  mma.sync.m16n8k8 with TF32 operands and f32 accumulators.
 // TF32 keeps 10 of f32's 23 mantissa bits, which alone misses the decode's
-// 1e-4 x voxel bound; each operand x is therefore split into
-// hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), and every product is taken
-// as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the lo*lo term, ~2^-22 relative,
-// is dropped).  TF32 x TF32 products are exact in f32, so what remains is
-// f32 accumulation order.  The weights are split once per call on the host
-// side (kernels/fused_decode.py); activations are split here.
+// 1e-4 x voxel bound and fused_mlp's 1e-4; each operand x is therefore
+// split into hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), and every
+// product is taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the lo*lo term,
+// ~2^-22 relative, is dropped).  TF32 x TF32 products are exact in f32, so
+// what remains is f32 accumulation order.  The weights are split once per
+// weight set on the host side (kernels/mlp_tc.py); activations are split
+// here.
 //
 // Fragments (PTX ISA, "Matrix Fragments for mma.m16n8k8" for .tf32), with
 // g = lane / 4 and t = lane % 4:
@@ -31,9 +35,9 @@
 // layer's accumulators become the next one's A registers (after ReLU and
 // the hi/lo split) with no trip through shared memory.
 //
-// Weight layout in shared memory, per layer of KS k-steps: one float4 per
-// (k-step j, n-tile n, lane), (hi b0, hi b1, lo b0, lo b1), at index
-// (j * 8 + n) * 32 + lane, so a warp's B loads are 32 consecutive
+// Weight layout in shared memory, per layer of KS k-steps and NT n-tiles:
+// one float4 per (k-step j, n-tile n, lane), (hi b0, hi b1, lo b0, lo b1),
+// at index (j * NT + n) * 32 + lane, so a warp's B loads are 32 consecutive
 // 16-byte words: one conflict-free LDS.128 feeds the 3 x MT products of
 // that (j, n).
 
@@ -66,18 +70,19 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc[m] = bias + A[m] W for MT row tiles; A[m] is given as KS k-steps of
-// raw f32 A fragments, W as KS * 8 * 32 float4 in shared memory (layout
-// above), bias as 64 floats in shared memory.  No ReLU here.
-template <int KS, int MT>
+// acc[m] = bias + A[m] W for MT row tiles and NT n-tiles of output; A[m]
+// is given as KS k-steps of raw f32 A fragments, W as KS * NT * 32 float4
+// in shared memory (layout above), bias as 8 * NT floats in shared memory.
+// No ReLU here.
+template <int KS, int MT, int NT = kNTiles>
 __device__ __forceinline__ void layer(const float (&a)[MT][8][4],
-                                      float (&acc)[MT][kNTiles][4],
+                                      float (&acc)[MT][NT][4],
                                       const float4* __restrict__ w,
                                       const float* __restrict__ bias,
                                       int lane) {
   const int t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < kNTiles; ++n) {
+  for (int n = 0; n < NT; ++n) {
     const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * n + 2 * t);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
@@ -95,8 +100,8 @@ __device__ __forceinline__ void layer(const float (&a)[MT][8][4],
 #pragma unroll
       for (int q = 0; q < 4; ++q) split(a[m][j][q], hi[m][q], lo[m][q]);
 #pragma unroll
-    for (int n = 0; n < kNTiles; ++n) {
-      const float4 b = w[(j * kNTiles + n) * 32 + lane];
+    for (int n = 0; n < NT; ++n) {
+      const float4 b = w[(j * NT + n) * 32 + lane];
       const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
       const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
 #pragma unroll

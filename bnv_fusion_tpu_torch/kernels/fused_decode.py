@@ -20,6 +20,7 @@ import torch
 
 from bnv_fusion_tpu_torch import nn as bnn
 from bnv_fusion_tpu_torch.kernels import _build
+from bnv_fusion_tpu_torch.kernels.mlp_tc import permute_rows, tc_fragments
 
 _HIDDEN = 64
 _LATENT = 8    # the one width built in csrc/fused_decode.cu (every config's)
@@ -48,16 +49,14 @@ def fused_corner_decode_torch(params: Dict[str, Any], local: torch.Tensor,
     return torch.sum(alpha * voxel_size * tw, dim=-1)
 
 
-# Tensor-core packing (csrc/fused_decode.cu, csrc/mlp_tc.cuh).  Layer 0's
+# Tensor-core packing (csrc/fused_decode.cu, csrc/mlp_tc.cuh; the hi/lo
+# split, PERM and the fragment order live in kernels/mlp_tc.py).  Layer 0's
 # 24 input columns (17 padded) in the kernel's order: lane t of a row owns
 # columns t and t+4 (latents t, t+4), 8+t (l_t), 12+t (sin l_t), 16+t
 # (cos l_t) and 20+t (padding); entry = the row of the true w0, -1 = zero.
 W0_ROWS = (9, 10, 11, 12, 13, 14, 15, 16,
            0, 1, 2, -1, 3, 4, 5, -1,
            6, 7, 8, -1, -1, -1, -1, -1)
-# Inside each block of 8, the A fragment's column kk is the accumulator's
-# column PERM[kk] (mlp_tc.cuh), so w1's and w2's rows are permuted so.
-PERM = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def tc_layer_weights(dec: Dict[str, torch.Tensor]):
@@ -68,33 +67,8 @@ def tc_layer_weights(dec: Dict[str, torch.Tensor]):
     rows = torch.tensor([max(r, 0) for r in W0_ROWS], device=w0.device)
     keep = torch.tensor([r >= 0 for r in W0_ROWS], device=w0.device)
     w0l = torch.where(keep[:, None], w0[rows], torch.zeros_like(w0[rows]))
-    perm = torch.tensor([8 * (i // 8) + PERM[i % 8] for i in range(_HIDDEN)],
-                        device=w0.device)
-    return [w0l, dec["w1"].to(torch.float32)[perm],
-            dec["w2"].to(torch.float32)[perm]]
-
-
-def split_tf32(x: torch.Tensor):
-    """x -> (hi, lo) with hi = tf32(x), lo = tf32(x - hi), both rounded to
-    nearest with ties away from zero (PTX cvt.rna.tf32.f32): the low 13 of
-    f32's 23 mantissa bits are rounded off."""
-    def rna(v):
-        b = v.contiguous().view(torch.int32)
-        return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
-    hi = rna(x.to(torch.float32))
-    return hi, rna(x.to(torch.float32) - hi)
-
-
-def tc_fragments(w: torch.Tensor) -> torch.Tensor:
-    """[K, 64] (K a multiple of 8) -> [K/8, 8, 32, 4]: for k-step j, n-tile
-    n and lane = 4g + t, the float4 (hi b0, hi b1, lo b0, lo b1) with
-    b0 = w[8j+t, 8n+g], b1 = w[8j+t+4, 8n+g] (PTX's B fragment of
-    mma.m16n8k8 .tf32)."""
-    k = w.shape[0]
-    hi, lo = split_tf32(w)
-    x = torch.stack([hi, lo])                      # [hl, K, 64]
-    x = x.reshape(2, k // 8, 2, 4, 8, 8)           # [hl, j, half, t, n, g]
-    return x.permute(1, 4, 5, 3, 0, 2).reshape(k // 8, 8, 32, 4)
+    return [w0l, permute_rows(dec["w1"].to(torch.float32)),
+            permute_rows(dec["w2"].to(torch.float32))]
 
 
 def pack_decoder_tc(dec: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -7,18 +7,24 @@ feature-major layout is a lane-padding workaround and is not kept: the CUDA
 kernel (csrc/fused_mlp.cu) takes row-major rows.  On CUDA tensors the kernel
 runs (the tcnn topology only: 3 hidden layers of 64, din <= 32, dout <= 16;
 anything else raises ValueError); on CPU tensors the plain version runs, for
-any topology.  Forward only, like the TPU kernel.
+any topology.  Forward only, like the TPU kernel.  The kernel runs its
+layers on the tensor cores in 3xTF32 (csrc/mlp_tc.cuh); the weight packing
+it reads (hi/lo split, row order, fragment order) is built here, in
+``pack_params``, so that the CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
 
 from bnv_fusion_tpu_torch import nn as bnn
 from bnv_fusion_tpu_torch.kernels import _build
+from bnv_fusion_tpu_torch.kernels.mlp_tc import (pad_to, permute_rows,
+                                                 tc_fragments)
 
 _HIDDEN = 64
 _N_HIDDEN = 3
@@ -30,11 +36,6 @@ def fused_mlp_torch(params: Dict[str, torch.Tensor],
                     x: torch.Tensor) -> torch.Tensor:
     """Plain version: nn.mlp_apply."""
     return bnn.mlp_apply(params, x)
-
-
-def _padded_out(dout: int) -> int:
-    """The kernel's output width for dout (csrc/fused_mlp.cu, launch<DP>)."""
-    return 1 if dout <= 1 else 4 if dout <= 4 else 8 if dout <= 8 else 16
 
 
 def mlp_dims(params: Dict[str, torch.Tensor]):
@@ -57,22 +58,47 @@ def mlp_dims(params: Dict[str, torch.Tensor]):
     return int(din), int(dout)
 
 
+def tiles(din: int, dout: int):
+    """(KS0, NT) of csrc/fused_mlp.cu: layer 0's k-steps (din padded to
+    8 * KS0) and the output layer's n-tiles (dout padded to 8 * NT; 0 for
+    dout = 1, whose output layer runs on FMAs)."""
+    return -(-din // 8), (0 if dout == 1 else -(-dout // 8))
+
+
 def pack_params(params: Dict[str, torch.Tensor], device) -> torch.Tensor:
-    """The kernel's weight layout: w0 [din, 64], b0, w1, b1, w2, b2, then
-    w_out [64, DP] and b_out [DP] zero-padded to the kernel's output width,
-    concatenated as one f32 vector on ``device``."""
-    _, dout = mlp_dims(params)
-    dp = _padded_out(dout)
-    f32 = {k: v.to(device=device, dtype=torch.float32) for k, v in
-           params.items()}
-    w_out = torch.zeros((_HIDDEN, dp), dtype=torch.float32, device=device)
-    w_out[:, :dout] = f32["w_out"]
-    b_out = torch.zeros((dp,), dtype=torch.float32, device=device)
-    b_out[:dout] = f32["b_out"].reshape(-1)
-    parts = []
-    for i in range(_N_HIDDEN):
-        parts += [f32[f"w{i}"].reshape(-1), f32[f"b{i}"].reshape(-1)]
-    return torch.cat(parts + [w_out.reshape(-1), b_out]).contiguous()
+    """The kernel's weight layout, one f32 vector on ``device``: the
+    fragments (mlp_tc.tc_fragments) of the layers the kernel multiplies on
+    the tensor cores: w0 [8 * KS0, 64] zero-padded (rows in input-column
+    order), w1 and w2 with rows permuted by PERM inside each block of 8,
+    and for dout >= 2 w_out [64, 8 * NT], rows permuted, columns
+    zero-padded; for dout = 1 w_out's 64 floats as they are (the FMA output
+    layer reads the accumulators' own columns).  Then b0, b1, b2 and b_out
+    (zero-padded to 8 * NT for dout >= 2), the whole zero-padded to whole
+    float4s (the kernel copies it to shared memory in 16-byte loads)."""
+    din, dout = mlp_dims(params)
+    ks0, nt = tiles(din, dout)
+    f32 = {k: v.to(device=device, dtype=torch.float32)
+           for k, v in params.items()}
+    ws = [pad_to(f32["w0"], 8 * ks0, _HIDDEN), permute_rows(f32["w1"]),
+          permute_rows(f32["w2"])]
+    if nt:
+        ws.append(permute_rows(pad_to(f32["w_out"], _HIDDEN, 8 * nt)))
+    parts = [tc_fragments(w).reshape(-1) for w in ws]
+    if not nt:
+        parts.append(f32["w_out"].reshape(-1))
+    parts += [f32[f"b{i}"].reshape(-1) for i in range(_N_HIDDEN)]
+    parts.append(pad_to(f32["b_out"].reshape(1, -1), 1,
+                        8 * nt if nt else 1).reshape(-1))
+    flat = torch.cat(parts)
+    return torch.cat([flat, flat.new_zeros(-flat.numel() % 4)]).contiguous()
+
+
+@functools.cache
+def packed_size(din: int, dout: int) -> int:
+    """Floats in the packed layout csrc/fused_mlp.cu reads for (din, dout),
+    from the built library."""
+    return _build.function("fused_mlp", "bnv_fused_mlp_packed_size",
+                           [ctypes.c_int, ctypes.c_int])(din, dout)
 
 
 def fused_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -95,11 +121,11 @@ def fused_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
     if packed is None:
         packed = pack_params(params, x.device)
     _build.check_cuda_tensor(packed, "packed", torch.float32, 1, x.device)
-    size = _build.function("fused_mlp", "bnv_fused_mlp_packed_size",
-                           [ctypes.c_int, ctypes.c_int])(din, dout)
-    if packed.numel() != size:
-        raise ValueError(f"fused_mlp: packed weights hold {packed.numel()} "
-                         f"floats, the kernel expects {size}")
+    size = packed_size(din, dout)
+    if packed.numel() != size or packed.data_ptr() % 16:
+        raise ValueError(f"fused_mlp: packed must be pack_params's {size} "
+                         f"floats, 16-byte aligned; got {packed.numel()} at "
+                         f"{packed.data_ptr():#x}")
     out = torch.empty((m, dout), dtype=torch.float32, device=x.device)
     if m == 0:
         return out.reshape(lead + (dout,))

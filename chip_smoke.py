@@ -22,8 +22,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
   6. fused_mlp: FusedMLP (the kernel's public API) driven once on the
      encoder and decoder weights, then held against the plain mlp_apply at
      the encoder's M = 480*640*8 rows (profiling/profile_fused_mlp.py's
-     shape) and the decoder's M = 2^18*8, both timed, and at a ragged M and
-     a batched [7, 11, 6] input;
+     shape) and the decoder's M = 2^18*8, both timed, at a ragged M and a
+     batched [7, 11, 6] input, and at the tensor-core tile's edge cases:
+     (din, dout) = (1, 1), (32, 16), (9, 2), (12, 9), M = 0, 5 and
+     16k + 3, a view whose base is not 16-byte aligned, and two launches
+     that must give identical bits;
   7. pretrain: bnv_fusion_tpu_torch.train on synthetic patches at the full
      model width (batch 32, 64 points, 256 queries, 32 steps): finite step
      losses, a falling loss, loadable last.npz / best.npz;
@@ -37,11 +40,13 @@ Each phase prints its wall time; the kernels line gives each kernel's
 launches on its path, error, times and bound: the larger of the bytes the
 function must move over 3.35 TB/s and its operations over the peak rate of
 the units they run on (H100 SXM published peaks).  For seg_reduce_sorted
-and fused_mlp those are f32 adds and FMAs at 67 TFLOP/s.  For
-fused_corner_decode, whose hidden layers run on the tensor cores in
-3xTF32, they are three TF32 products of the hidden layers at 495 TFLOP/s
-(the 64->1 output layer and the blend at 67 TFLOP/s are ~1% of that); the
-bound of the same work on f32 FMAs alone is printed beside it.
+those are f32 adds at 67 TFLOP/s.  For fused_corner_decode, whose hidden
+layers run on the tensor cores in 3xTF32, they are three TF32 products of
+the hidden layers at 495 TFLOP/s (the 64->1 output layer and the blend at
+67 TFLOP/s are ~1% of that); for fused_mlp, three TF32 products of every
+layer on the tensor cores (all four; for dout = 1 the output layer stays
+on FMAs).  The bound of the same work on f32 FMAs alone is printed beside
+each.
 The seg-reduce checks include edge cases at the kernel's own tile
 (tile_rows() rows): a segment over >= 3 tiles with a run of tiles without
 an end, M not a multiple of the tile (with M % 4 != 0, the scalar-load
@@ -83,14 +88,19 @@ E2E_OVERRIDES = [
 ]
 
 # rtol/atol of the kernel checks: float segment sums are taken in another
-# order than the plain version's (index_add); the decode's FMAs run in
+# order than the plain version's (index_add, CUDA atomics in no fixed
+# order), so the seg-reduce's bound scales with each segment's sum of
+# |value|: relative to the sum itself, a 3132-term segment whose sum
+# cancels failed the unchanged kernel in some runs; the decode's FMAs run in
 # another order than cuBLAS's full-f32 products.  The decode's outputs are
 # ~alpha * voxel_size, so its bound scales with the voxel size.
 SEG_RTOL = SEG_ATOL = 1e-5
 DECODE_ATOL = 1e-4 * VOXEL
 BIAS_STD = 0.1
-# fused_mlp: 64-term f32 sums taken in another order than cuBLAS's, on
-# outputs of magnitude ~1-10 (observed max abs err ~3e-6)
+# fused_mlp: 3xTF32 products (each operand's hi/lo split drops ~2^-22 of
+# it) summed in another order than cuBLAS's, on outputs of magnitude ~1-10
+# (observed on the H100: max abs err up to 1.2e-5 over 2.4M rows; one TF32
+# pass, modelled in numpy, would miss by ~6e-3)
 MLP_ATOL = MLP_RTOL = 1e-4
 ENC_ROWS = 480 * 640 * 8          # profiling/profile_fused_mlp.py:16
 DEC_ROWS = (1 << 18) * 8          # one mesh-lattice batch, 8 corners each
@@ -185,7 +195,10 @@ def sorted_stream(B, M, n_int, n_float, n_distinct, sent, two_keys, g,
 
 def check_seg(name, keys, keys2, cnts, vals, u, sent, timed=False):
     """Kernel vs plain: keys, int sums and n_seg exact, floats within
-    SEG_RTOL/SEG_ATOL.  Returns (max_abs_err, ms, plain_ms, bytes, flops):
+    SEG_ATOL + SEG_RTOL x the segment's sum of |value| (a float sum's
+    rounding error scales with its terms' magnitudes, not with the sum,
+    which cancels on long segments).  Returns (max_abs_err, ms, plain_ms,
+    bytes, flops):
     bytes = the inputs read once and the outputs written once, flops = one
     add per input channel value."""
     import torch
@@ -200,8 +213,10 @@ def check_seg(name, keys, keys2, cnts, vals, u, sent, timed=False):
     for i, what in ((0, "keys"), (1, "keys2"), (2, "int sums")):
         if p[i] is not None and not torch.equal(k[i], p[i]):
             raise AssertionError(f"{name}: {what} differ")
+    mag = seg_reduce_sorted_torch(keys, cnts, vals.abs(), u, sent,
+                                  keys2=keys2)[3]
     err = (k[3] - p[3]).abs()
-    if bool((err > SEG_ATOL + SEG_RTOL * p[3].abs()).any()):
+    if bool((err > SEG_ATOL + SEG_RTOL * mag).any()):
         raise AssertionError(f"{name}: float sums differ, max {err.max():.3e}")
     ms = plain_ms = float("nan")
     if timed:
@@ -352,10 +367,35 @@ def phase_kernels():
     return res
 
 
+def mlp_params(din: int, dout: int, seed: int):
+    """A din -> 64 x 3 -> dout MLP with the port's init (He-normal weights,
+    biases from N(0, BIAS_STD^2)) on the card."""
+    import numpy as np
+    from bnv_fusion_tpu_torch import nn as bnn
+
+    return bnn.params_from_numpy(bnn._init_mlp(
+        np.random.RandomState(seed), [din, 64, 64, 64, dout], BIAS_STD),
+        "cuda")
+
+
+def mlp_bounds(prm, x, y):
+    """(bound, f32-FMA bound) of fused_mlp on x -> y: the layers on the
+    tensor cores as three TF32 products each (3xTF32), all four for
+    dout >= 2, for dout = 1 the output layer on FMAs; the second is all four
+    on f32 FMAs (the earlier design's units)."""
+    rows, wo = x.shape[0], prm["w_out"].numel()
+    hidden = sum(prm[k].numel() for k in ("w0", "w1", "w2"))
+    on_fma = wo if y.shape[1] == 1 else 0
+    n_bytes = nbytes(x, y, *prm.values())
+    return (bound(n_bytes, rows * 2 * on_fma,
+                  rows * 3 * 2 * (hidden + wo - on_fma)),
+            bound(n_bytes, rows * 2 * (hidden + wo)))
+
+
 def phase_fused_mlp():
     """FusedMLP driven once per network (its path: the public API), then
-    held against the plain version and timed.  Returns the kernels-line
-    entry, with the path's launches."""
+    held against the plain version and timed, and at the tensor-core tile's
+    edge cases.  Returns the kernels-line entry, with the path's launches."""
     import torch
     from bnv_fusion_tpu_torch import nn as bnn
     from bnv_fusion_tpu_torch.kernels import FusedMLP, _build, fused_mlp_torch
@@ -385,31 +425,57 @@ def phase_fused_mlp():
         if bool((err > MLP_ATOL + MLP_RTOL * ref.abs()).any()):
             raise AssertionError(f"fused_mlp {name}: max abs err "
                                  f"{float(err.max()):.3e}")
-        return float(err.max())
+        errs[name] = float(err.max()) if err.numel() else 0.0
 
-    errs = [check("encoder", enc, params["encoder"], x_enc, y_enc),
-            check("decoder", dec, params["decoder"], x_dec, y_dec),
-            check("ragged", enc, params["encoder"], x_enc[:3000 - 37]),
-            check("batched", enc, params["encoder"],
-                  torch.randn((7, 11, 6), generator=g, device="cuda"))]
-    out = {"launches": launches, "max_abs_err": max(errs)}
+    errs = {}
+    check("encoder", enc, params["encoder"], x_enc, y_enc)
+    check("decoder", dec, params["decoder"], x_dec, y_dec)
+    check("ragged", enc, params["encoder"], x_enc[:3000 - 37])
+    check("batched", enc, params["encoder"],
+          torch.randn((7, 11, 6), generator=g, device="cuda"))
+    # the tile's edge cases: layer 0's 1-4 k-steps, the output layer on
+    # FMAs (dout 1) and on 1-2 n-tiles with even and odd dout; M = 0, a
+    # partial 16-row tile, a partial 32-row unit; a base that is not
+    # 16-byte aligned (the kernel's 4-byte copy path)
+    ragged = 16 * 1000 + 3
+    for din, dout in ((1, 1), (32, 16), (9, 2), (12, 9)):
+        prm = mlp_params(din, dout, seed=100 * din + dout)
+        check(f"{din}->{dout} M={ragged}", FusedMLP(prm), prm,
+              torch.randn((ragged, din), generator=g, device="cuda"))
+    for m_rows in (0, 5, ragged):
+        check(f"M={m_rows}", enc, params["encoder"], x_enc[:m_rows])
+    view = x_enc[1:]
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("x_enc[1:] is 16-byte aligned")
+    check("misaligned view x_enc[1:]", enc, params["encoder"], view)
+    y1, y2 = enc(x_enc), enc(x_enc)
+    torch.cuda.synchronize()
+    if not torch.equal(y1.view(torch.int32), y2.view(torch.int32)):
+        raise AssertionError("fused_mlp: two launches differ")
+    print("  fused_mlp encoder: two launches give identical bits",
+          flush=True)
+    del y1, y2, view
+
+    out = {"launches": launches, "max_abs_err": max(errs.values())}
     for name, mlp, prm, x, y in (("encoder", enc, params["encoder"], x_enc,
                                   y_enc),
                                  ("decoder", dec, params["decoder"], x_dec,
                                   y_dec)):
         ms = median_ms(lambda: mlp(x))
         plain_ms = median_ms(lambda: fused_mlp_torch(prm, x))
-        fmas = sum(prm[k].numel() for k in ("w0", "w1", "w2", "w_out"))
-        b = bound(nbytes(x, y, *prm.values()), x.shape[0] * 2 * fmas)
+        b, fma_bound = mlp_bounds(prm, x, y)
         print(f"  fused_mlp {name}: M={x.shape[0]} {x.shape[1]}->"
               f"{y.shape[1]} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {b[0]:.3f} ms ({b[1]})", flush=True)
+              f"bound {b[0]:.3f} ms ({b[1]}, 3xTF32 on the tensor cores; on "
+              f"f32 FMAs alone {fma_bound[0]:.3f} ms)", flush=True)
         if name == "encoder":
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=b[0],
                        bound_by=b[1])
-    print(f"  fused_mlp max_abs_err={out['max_abs_err']:.3e} over the "
-          f"encoder, decoder, ragged M=2963 and [7, 11, 6] inputs; "
-          f"launches on its path: {launches}", flush=True)
+    print("  fused_mlp max_abs_err by case: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    print(f"  fused_mlp max_abs_err={out['max_abs_err']:.3e} over "
+          f"{len(errs)} cases; launches on its path: {launches}",
+          flush=True)
     return out
 
 

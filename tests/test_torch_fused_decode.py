@@ -21,6 +21,7 @@ from bnv_fusion_tpu import nn as jnn
 from bnv_fusion_tpu.kernels import fused_corner_decode as jax_fused
 from bnv_fusion_tpu_torch import nn as tnn
 from bnv_fusion_tpu_torch.kernels import fused_decode as tfd
+from bnv_fusion_tpu_torch.kernels import mlp_tc
 
 VOXEL = 0.02
 ATOL = 1e-4 * VOXEL
@@ -65,7 +66,7 @@ def test_available_for_tcnn_topology():
 # --- the tensor-core kernel's packing and arithmetic (csrc/fused_decode.cu)
 
 def _unfragment(frag, k):
-    """Invert tfd.tc_fragments from PTX's B-fragment table of
+    """Invert mlp_tc.tc_fragments from PTX's B-fragment table of
     mma.m16n8k8 .tf32 (b0 = B[t][g], b1 = B[t+4][g], lane = 4g + t):
     [k/8, 8, 32, 4] -> (hi, lo), each [k, 64]."""
     frag = np.asarray(frag).reshape(k // 8, 8, 32, 4)
@@ -94,7 +95,7 @@ def _unpack(packed):
 def test_tc_packing_round_trips():
     dec = tnn.init_model(5, bias_std=0.1)["decoder"]
     layers, b0, b1, b2, wo, bo = _unpack(tfd.pack_decoder_tc(dec))
-    perm = [8 * (i // 8) + tfd.PERM[i % 8] for i in range(64)]
+    perm = [8 * (i // 8) + mlp_tc.PERM[i % 8] for i in range(64)]
     inv = np.argsort(perm)
     w0l = layers[0][0].astype(np.float64) + layers[0][1]
     for name, (hi, lo), rows in (("w1", layers[1], inv), ("w2", layers[2], inv)):
@@ -127,7 +128,7 @@ def _tf32(x):
     return ((b + 0x1000) & ~0x1FFF).astype(np.int32).view(np.float32)
 
 
-def _emulate_kernel(packed, local, feats, tw, voxel_size, perm=tfd.PERM):
+def _emulate_kernel(packed, local, feats, tw, voxel_size, perm=mlp_tc.PERM):
     """numpy model of the kernel's arithmetic through the packed weights:
     layer 0's inputs in the kernel's column order, each operand split into
     TF32 hi/lo, products lo*hi + hi*lo + hi*hi (exact in f32, summed here
@@ -173,7 +174,7 @@ def test_tc_arithmetic_emulation_matches_pallas_interpret():
     # the model has teeth: reading the accumulators through the inverse
     # permutation instead misses the bound by far
     bad = _emulate_kernel(packed.numpy(), local, feats, tw, VOXEL,
-                          perm=tuple(int(i) for i in np.argsort(tfd.PERM)))
+                          perm=tuple(int(i) for i in np.argsort(mlp_tc.PERM)))
     assert np.abs(bad - ref).max() > 100 * ATOL
 
 
