@@ -173,17 +173,35 @@ def post_process_mesh(mesh: Mesh, vertex_threshold: float,
     return laplacian_smooth(out, smooth_iterations)
 
 
-def merge_vertices(mesh: Mesh, tol: float) -> Mesh:
+def pack_weld_keys(vertices: np.ndarray, tol: float) -> Optional[np.ndarray]:
+    """merge_vertices' packed int64 weld keys for ``vertices``, or None when
+    a rounded coordinate falls outside the +-2**20 packing range (callers
+    then take merge_vertices' row-unique fallback).  Elementwise per vertex,
+    so keys packed over any partition of the vertices (the incremental
+    mesher's appended blocks) equal those packed over all of them."""
+    keys = np.round(vertices / max(tol, 1e-12)).astype(np.int64)
+    if len(keys) and np.abs(keys).max() >= (1 << 20):
+        return None
+    return coord_key3(keys)
+
+
+def merge_vertices(mesh: Mesh, tol: float,
+                   packed_keys: Optional[np.ndarray] = None) -> Mesh:
     """Weld vertices within ``tol`` (grid rounding) and drop degenerate faces
-    (open3d merge_close_vertices + cleanup in the reference)."""
+    (open3d merge_close_vertices + cleanup in the reference).
+    ``packed_keys`` (int64 [V]) skips the rounding and packing; the caller
+    guarantees it equals ``pack_weld_keys(mesh.vertices, tol)``."""
     if len(mesh.vertices) == 0:
         return mesh
-    keys = np.round(mesh.vertices / max(tol, 1e-12)).astype(np.int64)
-    if np.abs(keys).max() < (1 << 20):
+    k = packed_keys
+    if k is None:
+        keys = np.round(mesh.vertices / max(tol, 1e-12)).astype(np.int64)
+        if np.abs(keys).max() < (1 << 20):
+            k = coord_key3(keys)
+    if k is not None:
         # rows packed into one int64 (coord_key3's layout) are ordered
         # lexicographically, so a stable 1-D sort reproduces
         # np.unique(axis=0)'s order and first-occurrence indices
-        k = coord_key3(keys)
         order = np.argsort(k, kind="stable")
         ks = k[order]
         new_run = np.empty(len(ks), bool)
@@ -358,27 +376,32 @@ def extract_mesh(decode_fn, active_coords: np.ndarray, min_coords: np.ndarray,
 # ---------------------------------------------------------------------------
 
 def save_ply(path: str, mesh: Mesh) -> None:
+    with open(path, "wb") as fh:
+        write_ply(fh, mesh)
+
+
+def write_ply(fh, mesh: Mesh) -> None:
+    """The binary PLY of ``mesh`` to a writable binary file object."""
     v, f = mesh.vertices.astype("<f4"), mesh.faces.astype("<i4")
     c = mesh.colors
-    with open(path, "wb") as fh:
-        fh.write(b"ply\nformat binary_little_endian 1.0\n")
-        fh.write(f"element vertex {len(v)}\n".encode())
-        fh.write(b"property float x\nproperty float y\nproperty float z\n")
-        if c is not None:
-            fh.write(b"property uchar red\nproperty uchar green\n"
-                     b"property uchar blue\n")
-        fh.write(f"element face {len(f)}\n".encode())
-        fh.write(b"property list uchar int vertex_indices\nend_header\n")
-        if c is None:
-            fh.write(v.tobytes())
-        else:
-            xyz = v.view("u1").reshape(len(v), 12)
-            rgb = np.asarray(c, np.uint8).reshape(len(v), 3)
-            fh.write(np.concatenate([xyz, rgb], axis=1).tobytes())
-        counts = np.full((len(f), 1), 3, "u1")
-        rows = np.concatenate(
-            [counts.view("u1"), f.view("u1").reshape(len(f), 12)], axis=1)
-        fh.write(rows.tobytes())
+    fh.write(b"ply\nformat binary_little_endian 1.0\n")
+    fh.write(f"element vertex {len(v)}\n".encode())
+    fh.write(b"property float x\nproperty float y\nproperty float z\n")
+    if c is not None:
+        fh.write(b"property uchar red\nproperty uchar green\n"
+                 b"property uchar blue\n")
+    fh.write(f"element face {len(f)}\n".encode())
+    fh.write(b"property list uchar int vertex_indices\nend_header\n")
+    if c is None:
+        fh.write(v.tobytes())
+    else:
+        xyz = v.view("u1").reshape(len(v), 12)
+        rgb = np.asarray(c, np.uint8).reshape(len(v), 3)
+        fh.write(np.concatenate([xyz, rgb], axis=1).tobytes())
+    counts = np.full((len(f), 1), 3, "u1")
+    rows = np.concatenate(
+        [counts.view("u1"), f.view("u1").reshape(len(f), 12)], axis=1)
+    fh.write(rows.tobytes())
 
 
 def load_ply(path: str) -> Mesh:

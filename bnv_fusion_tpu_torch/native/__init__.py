@@ -49,6 +49,7 @@ def _build_and_load() -> ctypes.CDLL:
             ctypes.c_double]
         lib.mesh_ops_num_vertices.restype = ctypes.c_int64
         lib.mesh_ops_get.argtypes = [f32p, ctypes.POINTER(ctypes.c_int32)]
+        lib.mesh_ops_get_face_cells.argtypes = [i64p]
         lib.mesh_ops_build_lattice.restype = ctypes.c_int64
         lib.mesh_ops_build_lattice.argtypes = [i64p, ctypes.c_int64,
                                                ctypes.c_int]
@@ -62,12 +63,15 @@ def marching_tetrahedra_indexed_native(cells: np.ndarray,
                                        corner_idx: np.ndarray,
                                        sdf: np.ndarray, use_sentinel: bool,
                                        nan_fallback: float,
-                                       weld_tol: float = 0.0):
+                                       weld_tol: float = 0.0,
+                                       return_cell_ids: bool = False):
     """Fused corner gather + observed-crossing gate + marching tetrahedra
     + weld over all lattice cells.  With ``use_sentinel`` a cell meshes only
     when its non-NaN corners cross the level set; NaN corners interpolate as
     ``nan_fallback``.  Returns (vertices [V,3] float32 lattice units, faces
-    [F,3] int32)."""
+    [F,3] int32); with ``return_cell_ids`` also each face's source index
+    into ``cells`` ([F] int64; the incremental mesher keys its triangle
+    cache by cell)."""
     lib = _build_and_load()
     cells = np.ascontiguousarray(cells, np.int64)
     corner_idx = np.ascontiguousarray(corner_idx, np.int64)
@@ -82,11 +86,16 @@ def marching_tetrahedra_indexed_native(cells: np.ndarray,
         n_verts = lib.mesh_ops_num_vertices()
         verts = np.empty((n_verts, 3), np.float32)
         faces = np.empty((n_faces, 3), np.int32)
+        face_cells = np.empty((n_faces,), np.int64)
         if n_verts:
             lib.mesh_ops_get(
                 verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
                 faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+            if return_cell_ids:
+                lib.mesh_ops_get_face_cells(face_cells.ctypes.data_as(i64p))
         lib.mesh_ops_free()
+    if return_cell_ids:
+        return verts, faces, face_cells
     return verts, faces
 
 

@@ -1,7 +1,7 @@
 """NeuralMap: the online bi-level fusion pipeline (integrate / optimize / mesh).
 
-Counterpart of bnv_fusion_tpu/pipeline.py:36-1396 and :1498-1546 (``save``,
-``load_volume``, ``load_map``), limited to one device, the dense slot-map
+Counterpart of bnv_fusion_tpu/pipeline.py:36-1546 (with demo mode's
+incremental mesh, :1398-1496), limited to one device, the dense slot-map
 table and the dense TSDF prior.  PyTorch runs eagerly, so the JAX package's
 jit caches have no counterpart.  The device
 comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
@@ -49,8 +49,6 @@ def check_supported(config) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
-    if str(getattr(m, "mode", "eval")) == "demo":
-        refuse("model.mode=demo (incremental meshing)", 11)
     if str(getattr(m, "table_layout", "auto")) != "auto":
         refuse(f"model.table_layout={m.table_layout}", 14)
     if str(getattr(m, "tsdf_layout", "auto")) == "blocks":
@@ -80,11 +78,9 @@ def check_supported(config) -> None:
         refuse(f"model.fuse_algorithm={m.fuse_algorithm}", 5)
     if not bool(getattr(m, "fuse_batch_merge", True)):
         refuse("model.fuse_batch_merge=false", 5)
-    for name in ("fuse_dtype", "optim_dtype"):
+    for name, item in (("fuse_dtype", 5), ("optim_dtype", 9)):
         if str(getattr(m, name, "float32")) != "float32":
-            refuse(f"model.{name}={getattr(m, name)}", 9)
-    if int(getattr(t, "live_viewer_port", 0) or 0):
-        refuse("trainer.live_viewer_port", 11)
+            refuse(f"model.{name}={getattr(m, name)}", item)
 
 
 class Timer:
@@ -178,13 +174,17 @@ class NeuralMap:
             int(getattr(config.trainer, "seed", 0)))
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else None)
-        self.timer = Timer(["local", "global", "mesh"], sync=sync)
+        self.timer = Timer(["local", "global", "mesh", "inc_mesh"], sync=sync)
         self.optimize_losses: List[float] = []
         # per-frame mean points per touched voxel, kept on the device until
         # read (fetching each would sync every frame)
         self._pending_stats: List[torch.Tensor] = []
         self._optim_step = None
         self._optim_lr = None
+        # demo mode: the incremental mesher and its device snapshot of
+        # (weights, num_hits, features) rows at the last committed event
+        self.inc_mesher = None
+        self._inc_prev: Optional[tuple] = None
 
     # ------------------------------------------------------------------
     # local fusion
@@ -440,17 +440,13 @@ class NeuralMap:
     # meshing / io
     # ------------------------------------------------------------------
 
-    def extract_mesh(self, use_delta: bool = True,
-                     batch_size: int | None = None
-                     ) -> Optional[mesh_mod.Mesh]:
-        """Decode the SDF on the half-voxel lattice of the voxels with real
-        fusion weight (and, with ``model.mesh_require_observation``, a fused
-        observation) and run marching tetrahedra on the host.  With
-        ``model.use_fused_decode_kernel`` on CUDA the lattice decode runs in
-        the fused decode kernel."""
+    def _mesh_decoder(self, use_delta: bool):
+        """decode_fn(coords [B, 3] voxel coords) -> SDF [B] f32 on the
+        device, NaN where a corner lacks weight, rounded through
+        ``model.mesh_fetch_dtype``.  With ``model.use_fused_decode_kernel``
+        on CUDA it runs the fused decode kernel, on the decoder packed once
+        here (the weights are fixed while meshing)."""
         m = self.config.model
-        if batch_size is None:
-            batch_size = int(getattr(m, "mesh_decode_batch", 1 << 18))
         use_fused = (self.device.type != "cpu" and
                      bool(getattr(m, "use_fused_decode_kernel", False)))
         fetch_dt = {"float32": torch.float32, "float16": torch.float16,
@@ -458,37 +454,125 @@ class NeuralMap:
             str(getattr(m, "mesh_fetch_dtype", "float32"))]
         sdf_delta = tsdf.prepare_sdf_delta(
             self.tsdf_vol, self.tsdf_voxel_size, self.truncated_dist,
-            self.sdf_delta_weight)
-        keys, _, weights, hits, _ = tbl.active_entries(self.table,
-                                                       with_features=False)
-        gate = weights >= self.min_pts_in_grid
-        if bool(getattr(m, "mesh_require_observation", False)):
-            gate &= hits > 0
-        active = keys[gate]
-        if len(active) == 0:
-            return None
-        # the weights are fixed while meshing: pack them for the kernel once
+            self.sdf_delta_weight) if use_delta else None
         packed = None
         if use_fused and fused_decode.fused_decode_available(self.params):
             with torch.no_grad():
                 packed = fused_decode.pack_decoder_tc(self.params["decoder"])
 
-        def decode_fn(batch: np.ndarray) -> np.ndarray:
-            coords = torch.as_tensor(batch, device=self.device)
+        def decode_fn(coords) -> torch.Tensor:
+            coords = torch.as_tensor(coords, device=self.device)
             with torch.no_grad():
                 out = fusion.decode_points(
                     self.table.features, self.table, self.params, coords,
                     self.bound_min, self.voxel_size, self.min_pts_in_grid,
-                    sdf_delta=sdf_delta if use_delta else None,
-                    n_xyz=self.n_xyz, is_coords=True,
+                    sdf_delta=sdf_delta, n_xyz=self.n_xyz, is_coords=True,
                     use_fused_kernel=use_fused, masked_fill=float("nan"),
                     packed_decoder=packed)
-            return out.to(fetch_dt).to(torch.float32).cpu().numpy()
+            return out.to(fetch_dt).to(torch.float32)
 
+        return decode_fn, sdf_delta
+
+    def _mesh_decode_batch(self) -> int:
+        """Lattice points per decode batch, for both mesh paths."""
+        return int(getattr(self.config.model, "mesh_decode_batch", 1 << 18))
+
+    def _mesh_weights(self, weights: np.ndarray,
+                      hits: np.ndarray) -> np.ndarray:
+        """Fusion weights as both mesh paths gate them: a voxel meshes where
+        this is >= ``min_pts_in_grid``.  Under
+        ``model.mesh_require_observation`` a voxel without a fused
+        observation (hits 0) gets -inf, so it never meshes.  (The JAX
+        package's incremental path gives it 0, which still meshes when
+        ``min_pts_in_grid`` is 0, unlike its ``extract_mesh``.)"""
+        if not bool(getattr(self.config.model, "mesh_require_observation",
+                            False)):
+            return weights
+        return np.where(hits > 0, weights,
+                        np.float32(-np.inf)).astype(weights.dtype)
+
+    def extract_mesh(self, use_delta: bool = True,
+                     batch_size: int | None = None
+                     ) -> Optional[mesh_mod.Mesh]:
+        """Decode the SDF on the half-voxel lattice of the voxels with real
+        fusion weight (and, with ``model.mesh_require_observation``, a fused
+        observation) and run marching tetrahedra on the host."""
+        m = self.config.model
+        if batch_size is None:
+            batch_size = self._mesh_decode_batch()
+        keys, _, weights, hits, _ = tbl.active_entries(self.table,
+                                                       with_features=False)
+        active = keys[self._mesh_weights(weights, hits) >=
+                      self.min_pts_in_grid]
+        if len(active) == 0:
+            return None
+        decode, _ = self._mesh_decoder(use_delta)
         return mesh_mod.extract_mesh(
-            decode_fn, active.astype(np.int32), self.bound_min.cpu().numpy(),
-            self.voxel_size, batch_size=batch_size, mask_sentinel=True,
+            lambda batch: decode(batch).cpu().numpy(), active.astype(np.int32),
+            self.bound_min.cpu().numpy(), self.voxel_size,
+            batch_size=batch_size, mask_sentinel=True,
             lattice_scale=int(getattr(m, "mesh_lattice_scale", 2)))
+
+    def _inc_changed_mask(self):
+        """(latent-change mask [n] bool on the host, device snapshot).
+
+        The table's (weights, num_hits, features) rows are diffed on the
+        device against the snapshot of the last committed event and only
+        the mask is fetched.  Fusion and optimization write the table in
+        place, so the snapshot holds clones of rows [:n_alloc], never
+        references.  The mask is all True at the first call and for rows
+        allocated since the snapshot (a new voxel flips its corners'
+        decode sentinel even where its values match).  The caller commits
+        the snapshot once the mesher's update has succeeded."""
+        t = self.table
+        n = int(t.n_alloc)
+        rows = (t.weights[:n], t.num_hits[:n], t.features[:n])
+        snap = tuple(r.clone() for r in rows)
+        prev = self._inc_prev
+        if prev is None:
+            return np.ones(n, bool), snap
+        k = min(n, prev[0].shape[0])
+        changed = torch.ones(n, dtype=torch.bool, device=self.device)
+        changed[:k] = ((rows[0][:k] != prev[0][:k]) |
+                       (rows[1][:k] != prev[1][:k]) |
+                       (rows[2][:k] != prev[2][:k]).any(dim=-1))
+        return changed.cpu().numpy(), snap
+
+    def incremental_mesh_inputs(self):
+        """What the incremental mesher reads: (decode_fn, active voxel keys
+        [n, 3] int32 in slot order, their ``_mesh_weights``, the prior in
+        decode units on the host)."""
+        decode, sdf_delta = self._mesh_decoder(True)
+        keys, _, weights, hits, _ = tbl.active_entries(self.table,
+                                                       with_features=False)
+        return (decode, keys.astype(np.int32),
+                self._mesh_weights(weights, hits), sdf_delta.cpu().numpy())
+
+    def extract_mesh_incremental(self) -> Optional[mesh_mod.Mesh]:
+        """Demo-mode mesh: only voxels whose latents or TSDF-prior cells
+        changed since the last call are decoded again (the reference's
+        VolumeList mesh cache).  Change detection is exact: a per-row diff
+        on the device plus a dilated diff of the dense prior
+        (``model.incremental_delta_tol`` bounds how small a prior move still
+        re-meshes; 0.0 = every change).  ``self.inc_mesher.last_stats``
+        counts the re-decoded and eligible voxels."""
+        from bnv_fusion_tpu_torch.incremental_mesh import IncrementalMesher
+
+        if self.inc_mesher is None:
+            self.inc_mesher = IncrementalMesher(
+                self.bound_min.cpu().numpy(), self.voxel_size,
+                batch_size=self._mesh_decode_batch(),
+                n_xyz=np.asarray(self.n_xyz),
+                delta_tol=float(getattr(self.config.model,
+                                        "incremental_delta_tol", 0.0)),
+                device=self.device)
+        changed_rows, snap = self._inc_changed_mask()
+        decode, keys, weights, delta = self.incremental_mesh_inputs()
+        mesh = self.inc_mesher.update(
+            decode, keys, weights, None, min_weight=self.min_pts_in_grid,
+            sdf_delta=delta, changed_rows=changed_rows)
+        self._inc_prev = snap  # committed only after a successful update
+        return mesh if len(mesh.vertices) else None
 
     def save(self, path_prefix: str):
         """``<prefix>_sparse_volume.npz`` (the JAX package's format) and

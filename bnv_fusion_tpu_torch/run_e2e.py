@@ -6,7 +6,11 @@ Counterpart of bnv_fusion_tpu/run_e2e.py:33-176:
         model.integrate_batch_size=16 model.use_fused_decode_kernel=true
 
 Streams posed depth frames through local fusion (K frames per table update
-when ``model.integrate_batch_size`` > 1), meshes the map (``before_optim.ply``),
+when ``model.integrate_batch_size`` > 1); with ``model.mode=demo`` every
+``model.optim_interval`` frames it optimizes over the latest frames and
+refreshes an incremental mesh (``{frame}.ply``, published to the live viewer
+when ``trainer.live_viewer_port`` is set).  Then it meshes the map
+(``before_optim.ply``),
 runs the global render-loss optimization, meshes again (``final.ply``),
 saves the map and prints the phase speeds and the F-scores against the
 analytic scene, in the JAX package's format.
@@ -50,8 +54,9 @@ def load_params(cfg):
 
 def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
         ) -> Dict[str, Any]:
-    """The whole main path; returns the map, the meshes, the F-scores and
-    the working directory for callers that check them."""
+    """The whole main path; returns the map, the meshes, the F-scores, the
+    working directory and, in demo mode, one record per event for callers
+    that check them."""
     cfg = load_config(overrides)
     from bnv_fusion_tpu_torch.datasets import get_dataset  # registers readers
 
@@ -63,25 +68,48 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
     os.makedirs(working_dir, exist_ok=True)
 
     nmap = NeuralMap(dataset.dimensions, cfg, params, working_dir)
+    demo_mode = str(cfg.model.mode) == "demo"
+    optim_interval = int(getattr(cfg.model, "optim_interval", 100))
     skip = int(getattr(cfg.dataset, "skip_images", 1)) or 1
     batch_k = int(getattr(cfg.model, "integrate_batch_size", 1))
     pending = []
+    events: List[Dict[str, Any]] = []
 
-    log.info(f"fusing {len(dataset)} frames (scan {cfg.dataset.scan_id})")
-    for idx in range(len(dataset)):
-        frame = dataset[idx]
-        nmap.timer.start("local")
-        if batch_k > 1:
-            pending.append(frame)
-            if len(pending) == batch_k or idx == len(dataset) - 1:
-                if len(pending) == 1:
-                    nmap.integrate(pending[0])
-                else:
-                    nmap.integrate_batch(pending)
-                pending = []
-        else:
-            nmap.integrate(frame)
-        nmap.timer.log("local")
+    # live monitoring (the reference's optional pangolin window): an HTTP
+    # page with the latest event mesh
+    viewer = None
+    viewer_port = int(getattr(cfg.trainer, "live_viewer_port", 0) or 0)
+    if viewer_port:
+        from bnv_fusion_tpu_torch.utils.live_viewer import LiveViewer
+
+        viewer = LiveViewer(port=viewer_port)
+        log.info(f"live viewer at http://127.0.0.1:{viewer.port}/")
+    try:
+        log.info(f"fusing {len(dataset)} frames (scan {cfg.dataset.scan_id})")
+        for idx in range(len(dataset)):
+            frame = dataset[idx]
+            event = demo_mode and idx % optim_interval == 0
+            nmap.timer.start("local")
+            if batch_k > 1:
+                # in demo mode the table is final at every event frame, so
+                # pending frames flush there too
+                pending.append(frame)
+                if (len(pending) == batch_k or idx == len(dataset) - 1
+                        or event):
+                    if len(pending) == 1:
+                        nmap.integrate(pending[0])
+                    else:
+                        nmap.integrate_batch(pending)
+                    pending = []
+            else:
+                nmap.integrate(frame)
+            nmap.timer.log("local")
+            if event and nmap.frames:
+                events.append(_demo_event(nmap, idx, optim_interval, skip,
+                                          working_dir, viewer))
+    finally:
+        if viewer is not None:
+            viewer.close()
 
     if nmap.overflow > 0:
         log.warning(
@@ -100,7 +128,9 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
     # trainer.global_steps > 0 overrides it
     global_steps = int(getattr(cfg.trainer, "global_steps", 0) or 0)
     if global_steps <= 0:
-        global_steps = int(len(nmap.frames) * skip) * 2
+        global_steps = int(len(nmap.frames) * skip)
+        if not demo_mode:
+            global_steps *= 2
     nmap.timer.start("global")
     nmap.optimize(n_iters=global_steps, last_frame=-1)
     nmap.timer.log("global")
@@ -142,7 +172,41 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
                   f"recall {res['recall']:.4f})")
     return {"nmap": nmap, "before_optim": before, "final": final,
             "fscores": fscores, "working_dir": working_dir,
-            "global_steps": global_steps}
+            "global_steps": global_steps, "events": events}
+
+
+def _demo_event(nmap: NeuralMap, idx: int, optim_interval: int, skip: int,
+                working_dir: str, viewer) -> Dict[str, Any]:
+    """One demo-mode event at frame ``idx``: optimize over the last
+    ``optim_interval`` frames, refresh the incremental mesh, write
+    ``{idx}.ply`` and publish it.  Returns the event's record."""
+    last = max(0, len(nmap.frames) - optim_interval)
+    n_iters = min(len(nmap.frames), optim_interval) * skip
+    tm = nmap.timer.times
+    t_opt, t_mesh = tm["global"], tm["inc_mesh"]
+    nmap.timer.start("global")
+    nmap.optimize(n_iters=n_iters, last_frame=last)
+    nmap.timer.log("global")
+    nmap.timer.start("inc_mesh")
+    m = nmap.extract_mesh_incremental()
+    nmap.timer.log("inc_mesh")
+    st = nmap.inc_mesher.last_stats
+    rec = {"frame": idx, "optimize_iters": n_iters,
+           "optimize_s": tm["global"] - t_opt,
+           "mesh_s": tm["inc_mesh"] - t_mesh,
+           "redecoded": st["redecoded"], "eligible": st["eligible"],
+           "vertices": 0 if m is None else len(m.vertices)}
+    if m is not None:
+        mesh_mod.save_ply(os.path.join(working_dir, f"{idx}.ply"), m)
+        if viewer is not None:
+            viewer.publish(m, status={
+                "frames": idx + 1, "local_s": round(tm["local"], 2),
+                "global_s": round(tm["global"], 2)})
+    log.info(f"event at frame {idx}: optimize {n_iters} iters "
+             f"{rec['optimize_s']:.2f} s, incremental mesh "
+             f"{rec['mesh_s']:.2f} s ({rec['redecoded']} of "
+             f"{rec['eligible']} voxels re-decoded), {rec['vertices']} verts")
+    return rec
 
 
 def _area(m: mesh_mod.Mesh) -> float:

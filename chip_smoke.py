@@ -19,6 +19,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      a non-empty binary final.ply, the saved map, and one K-batch fused
      through the kernel equal to the same batch through the plain
      seg-reduce (tables compared by voxel key);
+  5b. demo: run_e2e with model.mode=demo at profiling/bench_demo.py's
+     operating point (voxel 0.01, 480x640, 48 frames, uint16 depth staging,
+     max_unique_per_frame=116736, optim_interval=16, K=16, fused decode,
+     the config's trainer.global_steps=0): events at frames 0, 16 and 32,
+     each an optimize over the last 16 frames and an incremental mesh.
+     Checked: non-empty binary 16.ply and 32.ply (after one frame no
+     voxel has the weight model.min_pts_in_grid asks for, so the event at
+     frame 0 meshes nothing and, as in the JAX package, writes no 0.ply:
+     checked too), 48 final steps
+     (the demo formula, not doubled), finite losses, no overflow, both
+     kernels launched (counts zeroed just before, read just after), and
+     the cache after one more incremental mesh on the post-optimize state
+     equal to one update of a fresh IncrementalMesher: the same welded face
+     and vertex counts and the same triangles (sorted, rounded to 1e-5 m);
+     the same again after a partial update (a slab of latents and a box of
+     the prior moved, so only their neighbourhoods re-decode).
+     One line per event: optimize iterations and seconds, incremental-mesh
+     seconds, re-decoded of eligible voxels, vertices;
   6. fused_mlp: FusedMLP (the kernel's public API) driven once on the
      encoder and decoder weights, then held against the plain mlp_apply at
      the encoder's M = 480*640*8 rows (profiling/profile_fused_mlp.py's
@@ -85,6 +103,21 @@ E2E_OVERRIDES = [
     "model.integrate_batch_size=16",
     "model.use_fused_decode_kernel=true",
     "trainer.global_steps=64",
+]
+
+# profiling/bench_demo.py's operating point (:54-64) without its preset:
+# the demo step formula (48 final steps) runs at the config's
+# trainer.global_steps=0
+DEMO_OVERRIDES = [
+    f"model.voxel_size={VOXEL}",
+    "dataset.num_images=48",
+    "dataset.img_res=[480,640]",
+    "dataset.stage_raw_depth=true",
+    "model.max_unique_per_frame=116736",
+    "model.mode=demo",
+    "model.optim_interval=16",
+    "model.integrate_batch_size=16",
+    "model.use_fused_decode_kernel=true",
 ]
 
 # rtol/atol of the kernel checks: float segment sums are taken in another
@@ -587,6 +620,128 @@ def read_ply_header(path):
     return head, n_v, n_f
 
 
+def phase_demo(tmp, params):
+    """run_e2e in demo mode, then the incremental cache against a fresh
+    mesher's after the final optimize and after a partial update."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import run_e2e, tables as tbl
+    from bnv_fusion_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = run_e2e.run(DEMO_OVERRIDES + [f"output_dir={tmp}"], params=params)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    nmap, wd = out["nmap"], out["working_dir"]
+    for e in out["events"]:
+        print(f"  event at frame {e['frame']}: optimize "
+              f"{e['optimize_iters']} iters {e['optimize_s']:.3f} s, "
+              f"incremental mesh {e['mesh_s']:.3f} s, re-decoded "
+              f"{e['redecoded']} of {e['eligible']} eligible voxels "
+              f"({e['redecoded'] / max(e['eligible'], 1):.1%}), "
+              f"{e['vertices']} vertices", flush=True)
+    tm = nmap.timer.times
+    print(f"  launches in the demo run: {launches}", flush=True)
+    print(f"  local fusion {tm['local']:.2f} s, optimize {tm['global']:.2f} s "
+          f"({sum(e['optimize_iters'] for e in out['events'])} event + "
+          f"{out['global_steps']} final iters), full meshes {tm['mesh']:.2f} "
+          f"s, incremental meshes {tm['inc_mesh']:.2f} s", flush=True)
+    for name in ("seg_reduce_sorted", "fused_corner_decode"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"the demo run never launched {name}")
+    frames = [e["frame"] for e in out["events"]]
+    if frames != [0, 16, 32]:
+        raise AssertionError(f"events at frames {frames}")
+    for e in out["events"]:
+        path = os.path.join(wd, f"{e['frame']}.ply")
+        if e["frame"] == 0 and e["eligible"] == 0:
+            # one frame leaves every voxel's weight below
+            # model.min_pts_in_grid: no mesh and, as in the JAX package,
+            # no file
+            if os.path.exists(path):
+                raise AssertionError("0.ply written for an empty mesh")
+            continue
+        head, n_v, n_f = read_ply_header(path)
+        if "binary_little_endian" not in head or n_v != e["vertices"] or \
+                n_v <= 0 or n_f <= 0:
+            raise AssertionError(f"{e['frame']}.ply is not a non-empty "
+                                 f"binary PLY of the event's mesh ({n_v} "
+                                 f"vertices, {n_f} faces)")
+    losses = np.asarray(nmap.optimize_losses, np.float64)
+    if out["global_steps"] != 48 or len(losses) != 48:
+        raise AssertionError(f"final optimize ran {len(losses)} steps "
+                             f"(global_steps {out['global_steps']}), not 48")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"demo optimize losses not all finite: {losses}")
+    if nmap.overflow != 0:
+        raise AssertionError(f"demo table overflow {nmap.overflow}")
+
+    check_cache(nmap, "after the final optimize")
+    # a partial update at full size: latents of a slab of voxels and a box
+    # of the prior move, so only their neighbourhoods are re-decoded
+    keys = tbl.active_entries(nmap.table, with_features=False)[0]
+    lo, hi = np.percentile(keys[:, 0], [45, 55])
+    slab = np.nonzero((keys[:, 0] >= lo) & (keys[:, 0] < hi))[0]
+    nmap.table.features[torch.as_tensor(slab, device=nmap.device)] += 0.01
+    # the prior cells around one voxel of the map outside the slab
+    # (pipeline's voxel -> prior index map)
+    dims = np.asarray(nmap.tsdf_vol.sdf.shape)
+    far = keys[keys[:, 0] < np.percentile(keys[:, 0], 20)]
+    c = np.round(far[len(far) // 2] / (np.asarray(nmap.n_xyz) - 1) *
+                 (dims - 1)).astype(int)
+    box = tuple(slice(max(v - 3, 0), v + 4) for v in c)
+    nmap.tsdf_vol.sdf[box] += 0.05
+    st = check_cache(nmap, "after moving a slab of latents and a prior box")
+    if not 0 < st["redecoded"] < st["eligible"]:
+        raise AssertionError(f"the partial update re-decoded "
+                             f"{st['redecoded']} of {st['eligible']} voxels")
+
+
+def check_cache(nmap, when: str) -> dict:
+    """One more incremental mesh against one update of a fresh mesher on
+    the same state: equal welded face and vertex counts and the same
+    triangles, sorted and rounded to 1e-5 m (the welded vertices follow the
+    cache's triangle order, ROADMAP Queue 3).  Returns the update's
+    counts."""
+    import numpy as np
+    from bnv_fusion_tpu_torch.incremental_mesh import IncrementalMesher
+
+    t0 = time.time()
+    inc = nmap.extract_mesh_incremental()
+    t_inc = time.time() - t0
+    st = dict(nmap.inc_mesher.last_stats)
+    decode, keys, weights, delta = nmap.incremental_mesh_inputs()
+    fresh = IncrementalMesher(nmap.bound_min.cpu().numpy(), nmap.voxel_size,
+                              n_xyz=np.asarray(nmap.n_xyz),
+                              device=nmap.device)
+    t0 = time.time()
+    full = fresh.update(decode, keys, weights, None, nmap.min_pts_in_grid,
+                        sdf_delta=delta,
+                        changed_rows=np.ones(len(keys), bool))
+    t_fresh = time.time() - t0
+
+    def rows(tris):
+        r = np.round(tris.reshape(-1, 9) / 1e-5).astype(np.int64)
+        return r[np.lexsort(r.T[::-1])]
+
+    if inc is None or (len(inc.faces), len(inc.vertices)) != \
+            (len(full.faces), len(full.vertices)):
+        raise AssertionError(
+            f"{when}: incremental mesh "
+            f"{None if inc is None else len(inc.faces)} faces vs a fresh "
+            f"mesher's {len(full.faces)}")
+    if not np.array_equal(rows(nmap.inc_mesher.triangles()),
+                          rows(fresh.triangles())):
+        raise AssertionError(f"{when}: the incremental cache's triangles "
+                             "differ from a fresh mesher's")
+    print(f"  cache exactness {when}: re-decoded {st['redecoded']} of "
+          f"{st['eligible']} voxels in {t_inc:.3f} s; a fresh mesher "
+          f"{t_fresh:.3f} s; {len(full.faces)} faces, {len(full.vertices)} "
+          f"vertices, triangles equal", flush=True)
+    return st
+
+
 def phase_reference(nmap):
     """One K-batch of the bench frames fused through the kernel path and
     through the plain seg-reduce path into fresh tables: keys, weights and
@@ -713,6 +868,12 @@ def main() -> int:
         print(f"phase e2e: {time.time() - t0:.1f} s (reference check "
               "included)", flush=True)
         del out, nmap
+
+        print("phase demo: run_e2e model.mode=demo at bench_demo's point",
+              flush=True)
+        t0 = time.time()
+        phase_demo(os.path.join(tmp, "demo"), params)
+        print(f"phase demo: {time.time() - t0:.1f} s", flush=True)
 
         print("phase fused_mlp: FusedMLP vs the plain MLP", flush=True)
         t0 = time.time()

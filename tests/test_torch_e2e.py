@@ -183,25 +183,28 @@ def test_cuda_device_type_raises_without_cuda(monkeypatch):
                    run_e2e.load_params(cfg))
 
 
-@pytest.mark.parametrize("override", [
-    "model.mode=demo", "model.fuse_color=true",
-    "model.error_guided_sampling=true", "trainer.optim_early_stop=true",
-    "model.decode_layout=fm", "model.fuse_front_chunks=2",
-    "model.fuse_sort1_gather=true", "trainer.optimize_devices=2",
-    "model.max_unique_per_frame=auto", "model.table_layout=spatial"])
-def test_unsupported_options_raise(override):
+@pytest.mark.parametrize("override,item", [
+    ("model.fuse_dtype=bfloat16", 5), ("model.fuse_color=true", 6),
+    ("model.error_guided_sampling=true", 12),
+    ("trainer.optim_early_stop=true", 9), ("model.decode_layout=fm", 8),
+    ("model.fuse_front_chunks=2", 5), ("model.fuse_sort1_gather=true", 5),
+    ("trainer.optimize_devices=2", 14),
+    ("model.max_unique_per_frame=auto", 5),
+    ("model.table_layout=spatial", 14)])
+def test_unsupported_options_raise(override, item):
     cfg = tload_config(OVERRIDES + ["device_type=cpu", override])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue 1 item {item}\)"):
         TNeuralMap(np.array([2.6, 2.6, 1.6], np.float32), cfg,
                    run_e2e.load_params(cfg))
 
 
 def test_port_runs_without_jax():
     """Import the port and fuse a tiny frame in a fresh interpreter where
-    importing jax (or flax/optax/sklearn/yaml/the JAX package) fails."""
+    importing jax (or flax/optax/sklearn/yaml/cv2/the JAX package) fails."""
     code = r"""
 import builtins, sys
-blocked = ("jax", "jaxlib", "flax", "optax", "sklearn", "yaml",
+blocked = ("jax", "jaxlib", "flax", "optax", "sklearn", "yaml", "cv2",
            "bnv_fusion_tpu")
 real_import = builtins.__import__
 def guarded(name, *a, **k):
@@ -219,6 +222,8 @@ import bnv_fusion_tpu_torch.train, bnv_fusion_tpu_torch.test
 import bnv_fusion_tpu_torch.models.local_point_fusion
 import bnv_fusion_tpu_torch.models.fusion_refiner
 import bnv_fusion_tpu_torch.dense_grid, bnv_fusion_tpu_torch.utils.vis
+import bnv_fusion_tpu_torch.incremental_mesh
+import bnv_fusion_tpu_torch.utils.live_viewer
 from bnv_fusion_tpu_torch.kernels.fused_mlp import FusedMLP
 from bnv_fusion_tpu_torch.models import get_model
 assert get_model("lit_fusion_pointnet") and get_model("lit_fusion_refiner")
