@@ -1,10 +1,8 @@
 """Dense feature-grid encode/decode: the reference's ``return_dense`` path.
 
-Counterpart of bnv_fusion_tpu/dense_grid.py:24-101 (and of
-``fusion.encode_corner_features``, bnv_fusion_tpu/fusion.py:57-77, which
-only this module uses here).  Serves the pretraining trainer's
-``training_global`` mode and its per-patch validation meshes; the sparse
-table (fusion.py) is the production route.
+Counterpart of bnv_fusion_tpu/dense_grid.py:24-101.  Serves the pretraining
+trainer's ``training_global`` mode and its per-patch validation meshes; the
+sparse table (fusion.py) is the production route.
 """
 
 from __future__ import annotations
@@ -15,24 +13,7 @@ import torch
 
 from bnv_fusion_tpu_torch import nn as bnn
 from bnv_fusion_tpu_torch import voxel
-
-
-def encode_corner_features(params: Dict[str, Any], pts_w: torch.Tensor,
-                           normals: torch.Tensor, valid: torch.Tensor,
-                           bound_min: torch.Tensor, bound_max: torch.Tensor,
-                           voxel_size: float):
-    """Bound mask, corner expansion and PointNet features of [N] points:
-    (corner coords [N,8,3] int32, feats [N,8,F], valid8 [N,8] bool)."""
-    inside = torch.all((pts_w > bound_min + voxel_size) &
-                       (pts_w < bound_max - voxel_size), dim=-1)
-    valid = valid & inside
-    coords = voxel.position_to_coords(pts_w, bound_min, voxel_size)
-    corners = voxel.corner_neighbors(coords)
-    rel = voxel.local_offsets(coords, corners)
-    pn_in = torch.cat([rel, normals[:, None, :].expand(rel.shape)], dim=-1)
-    feats = bnn.encoder_apply(params, pn_in)
-    valid8 = valid[:, None].expand(corners.shape[:2])
-    return corners, feats, valid8
+from bnv_fusion_tpu_torch.fusion import encode_corner_features
 
 
 def encode_pointcloud_dense(params: Dict[str, Any], pts_w: torch.Tensor,

@@ -1,14 +1,17 @@
 """Local-level fusion (cell-keyed sort-reduce) and SDF decode through the
 sparse volume.
 
-Counterpart of bnv_fusion_tpu/fusion.py:259-1251 for dense slot-map tables.
+Counterpart of bnv_fusion_tpu/fusion.py:45-1251 for dense slot-map tables.
 Local fusion: a frame's oriented points are sorted by containing cell, encoded
 by the PointNet MLP, reduced per (cell, floor/ceil code) group, scattered to
 the 8 corner voxels, reduced again per voxel, and folded into the table with
 the reference's running mean (weight = clip(count / 32, 1), voxels under
 min_pts_in_grid points dropped).  ``fuse_frames_merged`` folds K frames into
-one table update.  Tables are updated IN PLACE.  All sorts are stable, like
-``lax.sort``.
+one table update; ``fuse_frame_sorted`` (``fuse_algorithm: corner``) sorts
+the 8N (corner, feature) entries in one stage instead.  Tables are updated
+IN PLACE.  All sorts are stable, like ``lax.sort``.  ``compute_dtype``
+(``model.fuse_dtype``) is the encoder's operand precision
+(``nn.mlp_apply``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from bnv_fusion_tpu_torch import nn as bnn
+from bnv_fusion_tpu_torch import table_dense as _dense
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel
 from bnv_fusion_tpu_torch.kernels import (fused_corner_decode,
@@ -91,7 +95,12 @@ def _cellsort_sort1(pts_w, normals, valid, bound_min, bound_max,
                     voxel_size: float, n_xyz, n_vox: int):
     """Stage-1 front over [..., N] points: bound mask + cell keys + a stable
     sort by (cell, mcode).  Returns (cell_s, mcode_s, coords_s, normals_s,
-    n_valid)."""
+    n_valid).
+
+    The sort's permutation moves every operand.  The JAX package's
+    ``fuse_sort1_gather`` formulation (sort the combined key with its row
+    index, gather only the float payloads) gives identical bits and took
+    1% longer on the H100 (PERF.md), so it has no counterpart here."""
     inside, cell, mcode, coords = _cell_keys(pts_w, valid, bound_min,
                                              bound_max, voxel_size, n_xyz, n_vox)
     zero = torch.zeros((), dtype=coords.dtype, device=coords.device)
@@ -102,6 +111,24 @@ def _cellsort_sort1(pts_w, normals, valid, bound_min, bound_max,
     return (torch.gather(cell, -1, order), torch.gather(mcode, -1, order),
             torch.gather(coords_z, -2, o3), torch.gather(normals_z, -2, o3),
             inside.to(torch.float32).sum(-1))
+
+
+def frame_width_counts(pts_w, valid, bound_min, bound_max, voxel_size: float,
+                       n_xyz, n_vox: int):
+    """Occupancy of frames [..., N]: (#unique (cell, mcode) groups, #unique
+    corner voxels) per frame, int32 [...] — the exact quantities the static
+    widths ``max_unique_cells_per_frame`` / ``max_unique_per_frame`` bound.
+
+    Runs the fuse front's key math (``_cell_keys``), then counts uniques by
+    sort and boundary: no encoder, no payloads."""
+    inside, cell, mcode, _ = _cell_keys(pts_w, valid, bound_min, bound_max,
+                                        voxel_size, n_xyz, n_vox)
+    key_s = torch.sort(cell.long() * 16 + mcode.long(), dim=-1).values
+    new_g = (key_s != _prepend(key_s, -1)) & (key_s < n_vox * 16)
+    ck = _corner_keys(cell, mcode, inside, n_xyz, n_vox).flatten(-2)
+    ck_s = torch.sort(ck, dim=-1).values
+    new_c = (ck_s != _prepend(ck_s, -1)) & (ck_s < n_vox)
+    return (new_g.sum(-1).to(torch.int32), new_c.sum(-1).to(torch.int32))
 
 
 def _corner_keys(cell_u, mcode_u, gmask, n_xyz, n_vox: int):
@@ -120,7 +147,7 @@ def _corner_keys(cell_u, mcode_u, gmask, n_xyz, n_vox: int):
 def _cellsort_reduce(params, pts_w, normals, valid, bound_min, bound_max,
                      voxel_size: float, max_unique: int,
                      max_unique_cells: Optional[int], n_xyz, n_vox: int,
-                     fdim: int):
+                     fdim: int, compute_dtype: torch.dtype = torch.float32):
     """One frame's points -> per-unique-voxel (flat id, count, feature sum)
     padded to width ``max_unique``, through the mean-centered cumsum
     reductions of the JAX package's per-frame path.
@@ -138,7 +165,7 @@ def _cellsort_reduce(params, pts_w, normals, valid, bound_min, bound_max,
     corners_s = voxel.corner_neighbors(coords_s)
     rel = voxel.local_offsets(coords_s, corners_s)
     pn_in = torch.cat([rel, normals_s[:, None, :].expand_as(rel)], dim=-1)
-    feats = bnn.encoder_apply(params, pn_in)                     # [N, 8, F]
+    feats = bnn.encoder_apply(params, pn_in, compute_dtype)      # [N, 8, F]
     f8 = torch.where(entry_valid[:, None, None], feats,
                      torch.zeros((), device=dev)).reshape(n, 8 * fdim)
 
@@ -227,20 +254,24 @@ def _integrate_unique(table, flat_u, cnt_u, sum_u, umask, n_unique, u: int,
 def fuse_frame_cellsort(table, params: Dict[str, Any], pts_w, normals, valid,
                         bound_min, bound_max, voxel_size: float,
                         min_pts_in_grid: int, max_unique: int = 1 << 17,
-                        max_unique_cells: Optional[int] = None) -> FrameStats:
+                        max_unique_cells: Optional[int] = None,
+                        compute_dtype: torch.dtype = torch.float32
+                        ) -> FrameStats:
     """Integrate one frame's oriented points [N, 3] (+ normals, validity)
     into a dense table, in place, by the two-stage cell-keyed sort-reduce."""
     (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped,
      n_valid) = _cellsort_reduce(params, pts_w, normals, valid, bound_min,
                                  bound_max, voxel_size, max_unique,
                                  max_unique_cells, table.n_xyz,
-                                 table.n_voxels, table.feat_dims)
+                                 table.n_voxels, table.feat_dims,
+                                 compute_dtype=compute_dtype)
     stats = _integrate_unique(table, flat_u, cnt_u, sum_u, umask, n_unique, u,
                               min_pts_in_grid, extra_overflow=cells_dropped)
     return stats._replace(n_valid_pts=n_valid)
 
 
-def _encode_sorted_fm(params, coords_s, normals_s, entry_valid):
+def _encode_sorted_fm(params, coords_s, normals_s, entry_valid,
+                      compute_dtype: torch.dtype = torch.float32):
     """Encoder over one frame's sorted points, FEATURE-MAJOR output [F*8, N]
     with channel = f*8 + p (feature-major, corner-minor) — the layout the
     segmented reduce takes.  Invalid points encode to zero."""
@@ -248,7 +279,7 @@ def _encode_sorted_fm(params, coords_s, normals_s, entry_valid):
     corners = voxel.corner_neighbors(coords_s)
     rel = voxel.local_offsets(coords_s, corners)                 # [N, 8, 3]
     pn_in = torch.cat([rel, normals_s[:, None, :].expand_as(rel)], dim=-1)
-    feats = bnn.encoder_apply(params, pn_in)                     # [N, 8, F]
+    feats = bnn.encoder_apply(params, pn_in, compute_dtype)      # [N, 8, F]
     feats = torch.where(entry_valid[:, None, None], feats,
                         torch.zeros((), device=feats.device))
     return feats.permute(2, 1, 0).reshape(-1, n)
@@ -258,7 +289,8 @@ def _cellsort_reduce_batched(params, pts_w, normals, valid, bound_min,
                              bound_max, voxel_size: float, max_unique: int,
                              max_unique_cells: Optional[int], n_xyz,
                              n_vox: int, fdim: int, plain: bool = False,
-                             sort_bf16: bool = False):
+                             sort_bf16: bool = False,
+                             compute_dtype: torch.dtype = torch.float32):
     """K-frame batched reduce front: both segment reductions go through
     ``seg_reduce_sorted`` (the CUDA kernel on CUDA tensors; with ``plain``
     the plain PyTorch version on any device).  Inputs are [K, N, ...];
@@ -279,7 +311,7 @@ def _cellsort_reduce_batched(params, pts_w, normals, valid, bound_min,
     f8fm = torch.empty((kf, 8 * fdim, n), dtype=torch.float32, device=dev)
     for k in range(kf):
         f8fm[k] = _encode_sorted_fm(params, coords_s[k], normals_s[k],
-                                    entry_valid[k])
+                                    entry_valid[k], compute_dtype)
 
     cnts1 = entry_valid.to(torch.int32)[:, None, :].contiguous()
     cell_u, mcode_u, gcnt_i, gsum, n_groups = seg(
@@ -322,15 +354,21 @@ def fuse_frames_merged(table, params: Dict[str, Any], pts_w, normals, valid,
                        max_unique_cells: Optional[int] = None,
                        max_unique_batch: Optional[int] = None,
                        seg_kernel: bool | str = False,
-                       sort_bf16: bool = False) -> FrameStats:
+                       sort_bf16: bool = False,
+                       compute_dtype: torch.dtype = torch.float32,
+                       front_chunks: int = 1) -> FrameStats:
     """Fuse K frames [K, N, ...] with ONE table update, in place.
 
     ``seg_kernel``: True = the batched front with ``seg_reduce_sorted`` (the
     CUDA kernel on CUDA tensors); "interpret" = the batched front with the
     plain seg-reduce; False = the per-frame cumsum front of
-    ``_cellsort_reduce``.  The per-frame running mean is associative, so the
-    K frames' per-voxel contributions are merged (exact int32 weight sums,
-    feature sums of at most K entries) and applied once.
+    ``_cellsort_reduce``.  ``front_chunks`` > 1 runs the front over
+    K/front_chunks-frame sub-batches (the seg-reduce launches once per
+    sub-batch), which bounds the front's memory; the merge and the table
+    update still span all K frames, and the front is frame-independent, so
+    the result is bit-identical.  The per-frame running mean is
+    associative, so the K frames' per-voxel contributions are merged (exact
+    int32 weight sums, feature sums of at most K entries) and applied once.
 
     Returns FrameStats with [K]-shaped leaves."""
     kf = pts_w.shape[0]
@@ -338,20 +376,34 @@ def fuse_frames_merged(table, params: Dict[str, Any], pts_w, normals, valid,
     n_xyz, n_vox = table.n_xyz, table.n_voxels
     dev = pts_w.device
 
-    if seg_kernel:
-        (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped,
-         n_valid) = _cellsort_reduce_batched(
-            params, pts_w, normals, valid, bound_min, bound_max, voxel_size,
-            max_unique, max_unique_cells, n_xyz, n_vox, fdim,
-            plain=(seg_kernel == "interpret"), sort_bf16=sort_bf16)
-    else:
-        outs = [_cellsort_reduce(params, pts_w[k], normals[k], valid[k],
-                                 bound_min, bound_max, voxel_size, max_unique,
-                                 max_unique_cells, n_xyz, n_vox, fdim)
-                for k in range(kf)]
-        u = outs[0][5]
-        (flat_u, cnt_u, sum_u, umask, n_unique, cells_dropped, n_valid) = (
-            torch.stack([o[i] for o in outs]) for i in (0, 1, 2, 3, 4, 6, 7))
+    def front_batch(p, nr, v):
+        if seg_kernel:
+            out = _cellsort_reduce_batched(
+                params, p, nr, v, bound_min, bound_max, voxel_size,
+                max_unique, max_unique_cells, n_xyz, n_vox, fdim,
+                plain=(seg_kernel == "interpret"), sort_bf16=sort_bf16,
+                compute_dtype=compute_dtype)
+            return out[5], [out[i] for i in (0, 1, 2, 3, 4, 6, 7)]
+        outs = [_cellsort_reduce(params, p[k], nr[k], v[k], bound_min,
+                                 bound_max, voxel_size, max_unique,
+                                 max_unique_cells, n_xyz, n_vox, fdim,
+                                 compute_dtype=compute_dtype)
+                for k in range(p.shape[0])]
+        return outs[0][5], [torch.stack([o[i] for o in outs])
+                            for i in (0, 1, 2, 3, 4, 6, 7)]
+
+    if kf % front_chunks:
+        raise ValueError(f"front_chunks={front_chunks} must divide the "
+                         f"batch size {kf}")
+    kc = kf // front_chunks
+    parts = []
+    for c in range(0, kf, kc):
+        u, leaves = front_batch(pts_w[c:c + kc], normals[c:c + kc],
+                                valid[c:c + kc])
+        parts.append(leaves)
+    (flat_u, cnt_u, sum_u, umask, n_unique, cells_dropped, n_valid) = (
+        torch.cat(x) if len(parts) > 1 else x[0] for x in zip(*parts))
+    del parts
 
     zero = torch.zeros((), device=dev)
     mean_u = sum_u / torch.clamp(cnt_u, min=1.0)[..., None]
@@ -415,6 +467,120 @@ def fuse_frames_merged(table, params: Dict[str, Any], pts_w, normals, valid,
         n_avg_pts=torch.sum(torch.where(umask, cnt_u, zero), dim=1) / nf,
         n_touched=n_unique.to(torch.float32),
         n_valid_pts=n_valid)
+
+
+def encode_corner_features(params: Dict[str, Any], pts_w, normals, valid,
+                           bound_min, bound_max, voxel_size: float,
+                           compute_dtype: torch.dtype = torch.float32):
+    """Bound mask, corner expansion and PointNet features of points [N, 3].
+
+    Returns (corner coords [N, 8, 3] int32, feats [N, 8, F], valid8 [N, 8])."""
+    inside = torch.all((pts_w > bound_min + voxel_size) &
+                       (pts_w < bound_max - voxel_size), dim=-1)
+    valid = valid & inside
+    coords = voxel.position_to_coords(pts_w, bound_min, voxel_size)
+    corners = voxel.corner_neighbors(coords)                     # [N, 8, 3]
+    rel = voxel.local_offsets(coords, corners)
+    pn_in = torch.cat([rel, normals[:, None, :].expand_as(rel)], dim=-1)
+    feats = bnn.encoder_apply(params, pn_in, compute_dtype)      # [N, 8, F]
+    return corners, feats, valid[:, None].expand(corners.shape[:2])
+
+
+def fuse_frame(table, params: Dict[str, Any], pts_w, normals, valid,
+               bound_min, bound_max, voxel_size: float, min_pts_in_grid: int,
+               compute_dtype: torch.dtype = torch.float32,
+               max_unique: int = 1 << 19, algorithm: str = "cell",
+               max_unique_cells: Optional[int] = None) -> FrameStats:
+    """Integrate one frame's oriented points into the table, in place:
+    ``algorithm="cell"`` the two-stage cell-keyed sort-reduce
+    (``fuse_frame_cellsort``), anything else the one-stage corner-keyed sort
+    (``fuse_frame_sorted``).  Both fuse the same voxel set and weights.
+    The JAX package's hash-table branch belongs to the hash layout, which is
+    not ported (ROADMAP Queue 1 item 13)."""
+    if not isinstance(table, _dense.DenseIndexedTable):
+        raise NotImplementedError(
+            "fuse_frame on a hash table is not ported yet (ROADMAP Queue 1 "
+            "item 13)")
+    if algorithm == "cell":
+        return fuse_frame_cellsort(
+            table, params, pts_w, normals, valid, bound_min, bound_max,
+            voxel_size, min_pts_in_grid, max_unique=max_unique,
+            max_unique_cells=max_unique_cells, compute_dtype=compute_dtype)
+    return fuse_frame_sorted(table, params, pts_w, normals, valid, bound_min,
+                             bound_max, voxel_size, min_pts_in_grid,
+                             compute_dtype=compute_dtype,
+                             max_unique=max_unique)
+
+
+def fuse_frame_sorted(table, params: Dict[str, Any], pts_w, normals, valid,
+                      bound_min, bound_max, voxel_size: float,
+                      min_pts_in_grid: int,
+                      compute_dtype: torch.dtype = torch.float32,
+                      max_unique: int = 1 << 19) -> FrameStats:
+    """One-stage corner-keyed fusion of one frame (``fuse_algorithm:
+    corner``), in place: the 8N (corner voxel, feature) entries are sorted
+    by voxel id, summed per voxel by a mean-centered cumsum and a
+    difference at the segment ends, compacted to width ``max_unique`` and
+    folded into the table by the shared running-mean tail.  With a
+    bfloat16 ``compute_dtype`` the sorted features are rounded to bfloat16
+    before the per-voxel sum, as the JAX package's bf16 sort payload is."""
+    n = pts_w.shape[0]
+    m = n * 8
+    fdim = table.feat_dims
+    _, ny, nz = table.n_xyz
+    n_vox = table.n_voxels
+    dev = pts_w.device
+
+    corners, feats, valid8 = encode_corner_features(
+        params, pts_w, normals, valid, bound_min, bound_max, voxel_size,
+        compute_dtype)
+    keys = corners.reshape(m, 3)
+    nmax = torch.as_tensor(table.n_xyz, dtype=keys.dtype, device=dev)
+    inside = torch.all((keys >= 0) & (keys < nmax), dim=-1) & \
+        valid8.reshape(m)
+    flat = keys[:, 0].long() * (ny * nz) + keys[:, 1].long() * nz + \
+        keys[:, 2].long()
+    flat = torch.where(inside, flat, n_vox)               # invalid sort last
+    # zero the invalid entries: masked points may carry NaN features
+    f8 = bnn.round_to(torch.where(inside[:, None], feats.reshape(m, fdim),
+                                  torch.zeros((), device=dev)), compute_dtype)
+    order = torch.argsort(flat, stable=True)
+    flat_s, feats_s = flat[order], f8[order]
+
+    entry_valid = flat_s < n_vox
+    # centered by the batch mean, so the cumsum is a near-zero-mean walk
+    # and the end-start difference stays at f32 roundoff
+    ch_mean = torch.mean(feats_s, dim=0, keepdim=True)
+    cum = _cumsum_rows(feats_s - ch_mean)                        # [M, F]
+    is_end = _append(flat_s != _prepend(flat_s, -1), True) & entry_valid
+    n_unique = is_end.sum().to(torch.int32)
+
+    u = min(max_unique, m)
+    end_pos = torch.clamp(_compact_ends(is_end, u), max=m - 1)
+    umask = torch.arange(u, device=dev) < torch.clamp(n_unique, max=u)
+    prev_end = _prepend(end_pos, -1)
+    flat_u = flat_s[end_pos]
+    cnt_u = (end_pos - prev_end).to(torch.float32)
+    cum_lo = torch.where((prev_end >= 0)[:, None], cum[prev_end.clamp(min=0)],
+                         torch.zeros((), device=dev))
+    sum_u = cum[end_pos] - cum_lo + ch_mean * cnt_u[:, None]     # [U, F]
+
+    stats = _integrate_unique(table, flat_u, cnt_u, sum_u, umask, n_unique, u,
+                              min_pts_in_grid)
+    return stats._replace(n_valid_pts=valid8[:, 0].to(torch.float32).sum())
+
+
+def make_fuse_frame_fn(voxel_size: float, min_pts_in_grid: int,
+                       compute_dtype: torch.dtype = torch.float32):
+    """The per-frame fusion step ``step(table, params, pts_w, normals,
+    valid, bound_min, bound_max) -> FrameStats`` (in place; PyTorch runs
+    eagerly, so there is nothing to compile or donate)."""
+    def step(table, params, pts_w, normals, valid, bound_min, bound_max):
+        return fuse_frame(table, params, pts_w, normals, valid, bound_min,
+                          bound_max, voxel_size, min_pts_in_grid,
+                          compute_dtype=compute_dtype)
+
+    return step
 
 
 # ---------------------------------------------------------------------------

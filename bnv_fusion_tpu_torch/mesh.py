@@ -316,23 +316,42 @@ def build_sample_lattice(active_coords: np.ndarray, scale: int = 2,
     return points, corner_idx[hit_all], cells
 
 
-def extract_mesh(decode_fn, active_coords: np.ndarray, min_coords: np.ndarray,
-                 voxel_size: float, batch_size: int = 262144,
-                 merge_tol_factor: float = 0.25, use_native: bool = True,
-                 mask_sentinel: bool = False,
-                 lattice_scale: int = 2) -> Optional[Mesh]:
+def cell_owner_voxel(cells: np.ndarray, scale: int = 2) -> np.ndarray:
+    """Voxel coordinate that generated each lattice cell.
+
+    The +-half-voxel sample block of voxel ``v`` spans cell origins
+    ``[v*scale - scale//2, v*scale + scale//2)`` per axis, disjoint between
+    neighbouring voxels, so every cell has exactly one owner:
+    ``floor((origin + scale//2) / scale)``.  A lattice built over a SUPERSET
+    of the active voxels therefore filters exactly to any subset (the
+    pipeline's mesh-lattice prefetch)."""
+    return np.floor_divide(cells + (scale // 2), scale)
+
+
+def extract_mesh(decode_fn, active_coords: Optional[np.ndarray],
+                 min_coords: np.ndarray, voxel_size: float,
+                 batch_size: int = 262144, merge_tol_factor: float = 0.25,
+                 use_native: bool = True, mask_sentinel: bool = False,
+                 lattice_scale: int = 2, lattice=None) -> Optional[Mesh]:
     """Decode the SDF on the sub-voxel lattice and run marching tetrahedra.
 
     ``decode_fn(coords_f32 [B, 3]) -> sdf [B]`` (numpy in, numpy out)
     evaluates the sparse volume at *voxel* coordinates; it is called with
     fixed-size zero-padded batches.  With ``mask_sentinel``, NaN samples are
     "no data": they interpolate as +voxel_size, but a cell meshes only if its
-    observed corners alone cross the level set.
+    observed corners alone cross the level set.  ``lattice`` is a prebuilt
+    ``(points, corner_idx, cells)`` already filtered to the active set, in
+    place of ``build_sample_lattice(active_coords)``.
     """
-    if len(active_coords) == 0:
+    if lattice is not None:
+        points, corner_idx, cells = lattice
+        if len(cells) == 0:
+            return None
+    elif len(active_coords) == 0:
         return None
-    points, corner_idx, cells = build_sample_lattice(
-        active_coords, lattice_scale, use_native=use_native)
+    else:
+        points, corner_idx, cells = build_sample_lattice(
+            active_coords, lattice_scale, use_native=use_native)
     coords = points.astype(np.float32) / lattice_scale
     sdf = np.empty((len(points),), np.float32)
     for s in range(0, len(points), batch_size):

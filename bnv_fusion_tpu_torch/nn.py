@@ -3,7 +3,10 @@
 Counterpart of bnv_fusion_tpu/nn.py:31-133.  Parameters are plain dicts of
 ``w``/``b`` tensors (``w`` stored [in, out]), the same layout as the JAX
 package's pytrees, so ``params_from_numpy`` moves weights between the two
-packages unchanged.  Only float32 compute is supported.
+packages unchanged.  ``compute_dtype=torch.bfloat16`` (the fuse path's
+``model.fuse_dtype``) rounds every matmul operand to bfloat16 and multiplies
+in float32, as the JAX package's bf16 products with float32 accumulation
+do; torch's own bf16 matmul would round the product as well.
 """
 
 from __future__ import annotations
@@ -14,13 +17,24 @@ import numpy as np
 import torch
 
 
-def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Apply a ReLU MLP stored as {w0,b0,...,w_out,b_out} (no final ReLU)."""
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to ``dtype`` and held in float32 (a no-op for float32)."""
+    if dtype == torch.float32:
+        return x
+    return x.to(dtype).to(torch.float32)
+
+
+def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Apply a ReLU MLP stored as {w0,b0,...,w_out,b_out} (no final ReLU);
+    operands rounded to ``compute_dtype``, products and biases in f32."""
     n_hidden = sum(1 for k in params if k.startswith("w") and k != "w_out")
-    h = x
+    h = round_to(x, compute_dtype)
     for i in range(n_hidden):
-        h = torch.relu(h @ params[f"w{i}"] + params[f"b{i}"])
-    return h @ params["w_out"] + params["b_out"]
+        h = torch.relu(h @ round_to(params[f"w{i}"], compute_dtype)
+                       + params[f"b{i}"])
+        h = round_to(h, compute_dtype)
+    return h @ round_to(params["w_out"], compute_dtype) + params["b_out"]
 
 
 def positional_encoding(x: torch.Tensor, num_fns: int = 1,
@@ -39,12 +53,13 @@ def positional_encoding(x: torch.Tensor, num_fns: int = 1,
     return torch.cat(outs, dim=-1)
 
 
-def encoder_apply(params: Dict[str, Any], pts6: torch.Tensor) -> torch.Tensor:
+def encoder_apply(params: Dict[str, Any], pts6: torch.Tensor,
+                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """PointNet per-point features: [..., 6] -> [..., feat_dims].
 
     The first three channels are the point's offset from the voxel corner in
     voxel units, the last three the world-frame unit normal."""
-    return mlp_apply(params["encoder"], pts6)
+    return mlp_apply(params["encoder"], pts6, compute_dtype)
 
 
 def encoder_global_apply(params: Dict[str, Any], pts6: torch.Tensor,

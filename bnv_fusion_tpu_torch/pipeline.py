@@ -3,7 +3,8 @@
 Counterpart of bnv_fusion_tpu/pipeline.py:36-1546 (with demo mode's
 incremental mesh, :1398-1496), limited to one device, the dense slot-map
 table and the dense TSDF prior.  PyTorch runs eagerly, so the JAX package's
-jit caches have no counterpart.  The device
+jit caches have no counterpart, and a width change (``_widen``) needs no
+rebuild.  The device
 comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
 "the accelerator") and ``cuda`` select CUDA and raise where there is none;
 ``cpu`` is for tests.  Options this port does not implement yet raise
@@ -12,6 +13,8 @@ comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
 
 from __future__ import annotations
 
+import logging
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -21,10 +24,12 @@ import torch
 from bnv_fusion_tpu_torch import checkpoint as ckpt_io
 from bnv_fusion_tpu_torch import fusion, geometry, mesh as mesh_mod
 from bnv_fusion_tpu_torch import nn as bnn
-from bnv_fusion_tpu_torch import optimize, table_dense, tsdf
+from bnv_fusion_tpu_torch import optimize, tsdf
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel as vx
 from bnv_fusion_tpu_torch.kernels import fused_decode
+
+log = logging.getLogger(__name__)
 
 
 def resolve_device(device_type) -> torch.device:
@@ -57,10 +62,6 @@ def check_supported(config) -> None:
         v = str(getattr(t, name, 1))
         if v in ("all", "0") or int(v) > 1:
             refuse(f"trainer.{name}={v}", 14)
-    for name in ("max_unique_per_frame", "max_unique_cells_per_frame",
-                 "max_unique_per_batch"):
-        if str(getattr(m, name, None)).lower() == "auto":
-            refuse(f"model.{name}=auto", 5)
     if bool(getattr(m, "fuse_color", False)):
         refuse("model.fuse_color", 6)
     if bool(getattr(m, "error_guided_sampling", False)):
@@ -70,17 +71,8 @@ def check_supported(config) -> None:
     for name in ("decode_layout", "mesh_decode_layout"):
         if str(getattr(m, name, "rows")) == "fm":
             refuse(f"model.{name}=fm", 8)
-    if int(getattr(m, "fuse_front_chunks", 1)) > 1:
-        refuse("model.fuse_front_chunks>1", 5)
-    if bool(getattr(m, "fuse_sort1_gather", False)):
-        refuse("model.fuse_sort1_gather", 5)
-    if str(getattr(m, "fuse_algorithm", "cell")) != "cell":
-        refuse(f"model.fuse_algorithm={m.fuse_algorithm}", 5)
-    if not bool(getattr(m, "fuse_batch_merge", True)):
-        refuse("model.fuse_batch_merge=false", 5)
-    for name, item in (("fuse_dtype", 5), ("optim_dtype", 9)):
-        if str(getattr(m, name, "float32")) != "float32":
-            refuse(f"model.{name}={getattr(m, name)}", item)
+    if str(getattr(m, "optim_dtype", "float32")) != "float32":
+        refuse(f"model.optim_dtype={m.optim_dtype}", 9)
 
 
 class Timer:
@@ -160,13 +152,30 @@ class NeuralMap:
         self.tsdf_vol, _ = tsdf.create_tsdf_volume(
             self.dimensions, self.tsdf_voxel_size, device=self.device)
 
+        # compaction widths: ints from the config, or "auto" = sized from an
+        # occupancy probe of the first batch (fusion.frame_width_counts) with
+        # model.width_margin headroom, widened when overflow still appears
+        # (read from a lagged copy of the counter, _note_overflow)
         mu = getattr(m, "max_unique_per_frame", 1 << 17)
         muc = getattr(m, "max_unique_cells_per_frame", None)
-        self._widths = (int(mu), int(muc) if muc else None)
+        self._auto_widths = (str(mu).lower() == "auto" or
+                             str(muc).lower() == "auto")
+        self._width_margin = float(getattr(m, "width_margin", 1.5))
+        self._widths = None if self._auto_widths else (
+            int(mu), int(muc) if muc else None)
         mub = getattr(m, "max_unique_per_batch", None)
-        self._mu_batch = int(mub) if mub else None
+        # "auto" = 2 x max_unique_per_frame, derived in fuse_frames_merged
+        self._mu_batch = (int(mub) if mub and str(mub).lower() != "auto"
+                          else None)
+        self._overflow_seen = 0
+        self._overflow_lag: List[Any] = []
+        self._last_staged_dev: Optional[tuple] = None
 
         self.frames: List[Dict[str, Any]] = []
+        # fuse epoch: bumped whenever the key set may change; a mesh-lattice
+        # prefetch is valid only for the epoch it was taken at
+        self._fuse_epoch = 0
+        self._mesh_prefetch: Optional[Dict[str, Any]] = None
         self._window: Optional[tuple] = None
         self._window_intr: Optional[np.ndarray] = None
         self._window_built = False
@@ -191,8 +200,100 @@ class NeuralMap:
     # ------------------------------------------------------------------
 
     def _width_values(self) -> tuple:
-        """(max_unique_per_frame, max_unique_cells_per_frame)."""
+        """(max_unique_per_frame, max_unique_cells_per_frame), resolved."""
+        if self._widths is None:
+            raise RuntimeError(
+                "auto compaction widths not sized yet — the first "
+                "integrate/integrate_batch call probes them")
         return self._widths
+
+    @staticmethod
+    def _next_pow2(x: int) -> int:
+        return 1 << max(int(x) - 1, 1).bit_length()
+
+    def _probe_width_counts(self, depths, T_wcs, intrs):
+        """Occupancy of a frame batch on the device: per-frame (unique cell
+        groups, unique corner voxels), two int32 [K] tensors."""
+        g, c = [], []
+        for d, t, i in zip(depths, T_wcs, intrs):
+            pts_w, _, valid = _frame_points(d, t, i)
+            gi, ci = fusion.frame_width_counts(
+                pts_w, valid, self.bound_min, self.bound_max,
+                self.voxel_size, self.n_xyz, self.table.n_voxels)
+            g.append(gi)
+            c.append(ci)
+        return torch.stack(g), torch.stack(c)
+
+    def _size_widths(self, depths, T_wcs, intrs):
+        """Set the widths from a probe of this batch and width_margin:
+        cells -> the next power of two, corner voxels -> a multiple of 4096
+        capped at 8 x cells."""
+        g, c = self._probe_width_counts(depths, T_wcs, intrs)
+        g_max, c_max = int(g.max()), int(c.max())
+        m = self._width_margin
+        u_cell = self._next_pow2(max(int(g_max * m), 4096))
+        mu = min(-(-int(c_max * m) // 4096) * 4096, 8 * u_cell)
+        self._widths = (mu, u_cell)
+        log.info(f"auto widths: probed g_max={g_max} c_max={c_max} over "
+                 f"{len(g)} frames -> max_unique_per_frame={mu} "
+                 f"cells={u_cell}")
+
+    def _overflow_copy(self):
+        """A copy of the overflow counter as it stands in the queue now:
+        the table is written in place, so a later read of the live counter
+        would see later drops.  On CUDA the copy lands in pinned host memory
+        behind an event, so reading it later waits only for that event."""
+        c = self.table.overflow
+        if c.device.type != "cuda":
+            return c.clone(), None
+        host = torch.empty((), dtype=c.dtype, pin_memory=True)
+        host.copy_(c, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def _note_overflow(self, flush: bool = False):
+        """Lag-checked overflow monitor (auto widths only): queue a copy of
+        the counter and read those >= 2 batches old, whose work the device
+        has already done.  On growth, widen the widths (``_widen``)."""
+        if not self._auto_widths:
+            return
+        self._overflow_lag.append(self._overflow_copy())
+        depth = 0 if flush else 2
+        while len(self._overflow_lag) > depth:
+            val, ev = self._overflow_lag.pop(0)
+            if ev is not None:
+                ev.synchronize()
+            if int(val) > self._overflow_seen:
+                self._overflow_seen = int(val)
+                self._widen()
+
+    def _widen(self):
+        """Overflow despite the probe: re-probe the latest staged batch and
+        grow the widths to max(probe x margin, 1.5 x the current ones)."""
+        cur_mu, cur_cell = self._widths
+        new_mu, new_cell = int(cur_mu * 1.5), self._next_pow2(cur_cell + 1)
+        if self._last_staged_dev is not None:
+            g, c = self._probe_width_counts(*self._last_staged_dev)
+            m = self._width_margin
+            new_cell = max(new_cell, self._next_pow2(int(int(g.max()) * m)))
+            new_mu = max(new_mu, -(-int(int(c.max()) * m) // 4096) * 4096)
+        new_mu = min(-(-new_mu // 4096) * 4096, 8 * new_cell)
+        log.warning(f"table overflow {self._overflow_seen} with widths "
+                    f"({cur_mu}, {cur_cell}) — widening to ({new_mu}, "
+                    f"{new_cell})")
+        self._widths = (new_mu, new_cell)
+        # the queued copies (and the cumulative counter) record drops under
+        # the old widths: fast-forward so they cannot widen a second time
+        self._overflow_lag.clear()
+        self._overflow_seen = max(self._overflow_seen,
+                                  int(self.table.overflow))
+
+    def _fuse_dtype(self) -> torch.dtype:
+        """model.fuse_dtype: the encoder's operand precision."""
+        return (torch.bfloat16 if str(getattr(self.config.model, "fuse_dtype",
+                                              "float32")) == "bfloat16"
+                else torch.float32)
 
     def _tsdf_window_for(self, frame) -> tuple | None:
         """Frustum window for the TSDF prior when it pays (the frustum
@@ -255,6 +356,22 @@ class NeuralMap:
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def _fuse_one(self, depth, T_wc, intr) -> fusion.FrameStats:
+        """The per-frame step: ``fusion.fuse_frame`` by
+        ``model.fuse_algorithm`` and ``fuse_dtype``, then the prior at
+        obs_weight 1."""
+        max_unique, mu_cells = self._width_values()
+        pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
+        stats = fusion.fuse_frame(
+            self.table, self.params, pts_w, normals_w, valid, self.bound_min,
+            self.bound_max, self.voxel_size, self.min_pts_in_grid,
+            compute_dtype=self._fuse_dtype(), max_unique=max_unique,
+            algorithm=str(getattr(self.config.model, "fuse_algorithm",
+                                  "cell")),
+            max_unique_cells=mu_cells)
+        self._integrate_prior(depth, T_wc, intr)
+        return stats
+
     def integrate(self, frame: Dict[str, Any]):
         """Fuse one frame and keep its depth + pose for the optimization ray
         pool.  Frames with NaN poses are skipped."""
@@ -265,14 +382,15 @@ class NeuralMap:
         depth = self._tensor(frame["depth"])
         T_wc = self._tensor(frame["T_wc"])
         intr = self._tensor(frame["intr_mat"])
-        max_unique, mu_cells = self._width_values()
-        pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
-        stats = fusion.fuse_frame_cellsort(
-            self.table, self.params, pts_w, normals_w, valid, self.bound_min,
-            self.bound_max, self.voxel_size, self.min_pts_in_grid,
-            max_unique=max_unique, max_unique_cells=mu_cells)
+        if self._auto_widths:
+            staged = (depth[None], T_wc[None], intr[None])
+            if self._widths is None:
+                self._size_widths(*staged)
+            self._last_staged_dev = staged
+        stats = self._fuse_one(depth, T_wc, intr)
+        self._note_overflow()
         self._pending_stats.append(stats.n_avg_pts.reshape(1))
-        self._integrate_prior(depth, T_wc, intr)
+        self._fuse_epoch += 1
         self.frames.append({"depth": depth, "T_wc": T_wc, "intr": intr,
                             "frame_id": frame.get("frame_id")})
 
@@ -318,7 +436,13 @@ class NeuralMap:
     def integrate_batch(self, frames: List[Dict[str, Any]]):
         """Fuse K frames with one table update (fusion.fuse_frames_merged);
         the TSDF prior takes every ``model.tsdf_every``-th frame at
-        obs_weight = tsdf_every."""
+        obs_weight = tsdf_every.  With ``model.fuse_batch_merge=false`` or a
+        ``fuse_algorithm`` other than ``cell*`` the frames run the per-frame
+        step one by one instead, the prior on every frame at obs_weight 1
+        (``tsdf_every`` does not apply there, as in the JAX package).
+        ``model.fuse_sort1_gather`` is accepted and changes nothing: the JAX
+        package's option picks between two stage-1 sorts with identical
+        bits, and the port keeps the faster (``fusion._cellsort_sort1``)."""
         keep = [f for f in frames
                 if not np.any(np.isnan(np.asarray(f["T_wc"])))]
         if not keep:
@@ -333,26 +457,52 @@ class NeuralMap:
             depths = self._tensor(staged["depth"])
         T_wcs = self._tensor(staged["T_wc"])
         intrs = self._tensor(staged["intr"])
-        pts = [_frame_points(d, t, i) for d, t, i in zip(depths, T_wcs, intrs)]
-        pts_w, normals_w, valid = (torch.stack([p[j] for p in pts])
-                                   for j in range(3))
-        del pts
-        max_unique, mu_cells = self._width_values()
-        stats = fusion.fuse_frames_merged(
-            self.table, self.params, pts_w, normals_w, valid, self.bound_min,
-            self.bound_max, self.voxel_size, self.min_pts_in_grid,
-            max_unique=max_unique, max_unique_cells=mu_cells,
-            max_unique_batch=self._mu_batch, seg_kernel=self._seg_kernel(),
-            sort_bf16=bool(getattr(m, "fuse_sort_bf16", False)))
-        self._pending_stats.append(stats.n_avg_pts.reshape(-1))
-        del pts_w, normals_w, valid
-        every = int(getattr(m, "tsdf_every", 1))
-        for j in range(0, len(keep), every):
-            self._integrate_prior(depths[j], T_wcs[j], intrs[j],
-                                  obs_weight=float(every))
+        if self._auto_widths:
+            if self._widths is None:
+                self._size_widths(depths, T_wcs, intrs)
+            self._last_staged_dev = (depths, T_wcs, intrs)
+        algorithm = str(getattr(m, "fuse_algorithm", "cell"))
+        if not (bool(getattr(m, "fuse_batch_merge", True)) and
+                algorithm.startswith("cell")):
+            n_avg = torch.cat([
+                self._fuse_one(d, t, i).n_avg_pts.reshape(1)
+                for d, t, i in zip(depths, T_wcs, intrs)])
+        else:
+            pts = [_frame_points(d, t, i)
+                   for d, t, i in zip(depths, T_wcs, intrs)]
+            pts_w, normals_w, valid = (torch.stack([p[j] for p in pts])
+                                       for j in range(3))
+            del pts
+            max_unique, mu_cells = self._width_values()
+            n_avg = fusion.fuse_frames_merged(
+                self.table, self.params, pts_w, normals_w, valid,
+                self.bound_min, self.bound_max, self.voxel_size,
+                self.min_pts_in_grid, max_unique=max_unique,
+                max_unique_cells=mu_cells, max_unique_batch=self._mu_batch,
+                seg_kernel=self._seg_kernel(),
+                sort_bf16=bool(getattr(m, "fuse_sort_bf16", False)),
+                compute_dtype=self._fuse_dtype(),
+                front_chunks=int(getattr(m, "fuse_front_chunks", 1))
+            ).n_avg_pts.reshape(-1)
+            del pts_w, normals_w, valid
+            every = int(getattr(m, "tsdf_every", 1))
+            for j in range(0, len(keep), every):
+                self._integrate_prior(depths[j], T_wcs[j], intrs[j],
+                                      obs_weight=float(every))
+        self._note_overflow()
+        self._pending_stats.append(n_avg)
+        self._fuse_epoch += 1
         for f, d, t, i in zip(keep, depths, T_wcs, intrs):
             self.frames.append({"depth": d, "T_wc": t, "intr": i,
                                 "frame_id": f.get("frame_id")})
+
+    def integrate_batches(self, batches: List[List[Dict[str, Any]]]):
+        """Fuse several K-frame batches by sequential ``integrate_batch``
+        calls (the JAX package's entry point, which bench.py times).  The
+        JAX package stacks the next batch on a host thread meanwhile; on the
+        H100 that moved no time the spread resolves, so the port does not."""
+        for b in batches:
+            self.integrate_batch(b)
 
     # ------------------------------------------------------------------
     # global fusion
@@ -372,6 +522,9 @@ class NeuralMap:
         if frame_order is None:
             frame_order = str(getattr(self.config.trainer,
                                       "optim_frame_order", "random"))
+        # the mesh lattice builds on the host while the optimize runs; the
+        # next extract_mesh takes it if no frame was fused since
+        self.prefetch_mesh_lattice()
         if self._optim_step is None or self._optim_lr != lr:
             self._optim_lr = lr
             self._optim_step = optimize.make_optimize_step(
@@ -491,27 +644,113 @@ class NeuralMap:
         return np.where(hits > 0, weights,
                         np.float32(-np.inf)).astype(weights.dtype)
 
+    def prefetch_mesh_lattice(self):
+        """Start building the mesh sample lattice of every allocated voxel
+        on a host thread, to overlap the optimize that follows (``optimize``
+        calls this first).  The key set does not change while optimizing,
+        and every lattice cell has one owner voxel
+        (``mesh.cell_owner_voxel``), so ``extract_mesh`` filters this
+        superset to its post-optimize gate and meshes exactly what the
+        in-line build would.  The slot keys come to the host here, on the
+        caller's thread: a copy issued from the worker would queue behind
+        the optimize launches.  The worker runs numpy and the native
+        lattice builder only.  A no-op with ``model.mesh_prefetch=false``
+        or when a prefetch of this fuse epoch exists."""
+        m = self.config.model
+        if not bool(getattr(m, "mesh_prefetch", True)):
+            return
+        scale = int(getattr(m, "mesh_lattice_scale", 2))
+        pf = self._mesh_prefetch
+        if pf is not None and pf["epoch"] == self._fuse_epoch and \
+                pf["scale"] == scale:
+            return
+        n = int(self.table.n_alloc)
+        if n == 0:
+            self._mesh_prefetch = None
+            return
+        flat = self.table.slot_flat[:n].cpu().numpy().astype(np.int64)
+        _, ny, nz = self.n_xyz
+        box: Dict[str, Any] = {"epoch": self._fuse_epoch, "scale": scale,
+                               "n": n}
+
+        def work():
+            try:
+                keys = np.stack([flat // (ny * nz), (flat // nz) % ny,
+                                 flat % nz], axis=-1).astype(np.int32)
+                lattice = mesh_mod.build_sample_lattice(keys, scale)
+                # every cell -> its owner voxel's ROW, so the gate filters
+                # the cells with one gather
+                owner = mesh_mod.cell_owner_voxel(lattice[2], scale)
+                kk = mesh_mod.coord_key3(keys)
+                order = np.argsort(kk)
+                pos = np.searchsorted(kk[order], mesh_mod.coord_key3(owner))
+                box["owner_rows"] = order[np.clip(pos, 0, n - 1)]
+                box["lattice"] = lattice
+            except Exception as e:  # re-raised where the lattice is read
+                box["error"] = e
+
+        box["thread"] = threading.Thread(target=work, daemon=True)
+        box["thread"].start()
+        self._mesh_prefetch = box
+
+    def _prefetched_lattice(self):
+        """The prefetch box (lattice, owner rows, n) if it is still valid:
+        taken at this fuse epoch and lattice scale, with
+        ``model.mesh_prefetch`` on.  Else None.  Waits for the worker, and
+        raises what it raised."""
+        box = self._mesh_prefetch
+        m = self.config.model
+        if box is None or box["epoch"] != self._fuse_epoch or \
+                not bool(getattr(m, "mesh_prefetch", True)) or \
+                box["scale"] != int(getattr(m, "mesh_lattice_scale", 2)):
+            return None
+        box["thread"].join()
+        if "error" in box:
+            raise RuntimeError("the mesh-lattice prefetch failed") \
+                from box["error"]
+        if int(self.table.n_alloc) != box["n"]:
+            return None
+        return box
+
     def extract_mesh(self, use_delta: bool = True,
                      batch_size: int | None = None
                      ) -> Optional[mesh_mod.Mesh]:
         """Decode the SDF on the half-voxel lattice of the voxels with real
         fusion weight (and, with ``model.mesh_require_observation``, a fused
-        observation) and run marching tetrahedra on the host."""
+        observation) and run marching tetrahedra on the host.  A valid
+        prefetched lattice (``prefetch_mesh_lattice``) is filtered to the
+        same gate, through the same ``_mesh_weights``, in place of the
+        in-line build."""
         m = self.config.model
         if batch_size is None:
             batch_size = self._mesh_decode_batch()
-        keys, _, weights, hits, _ = tbl.active_entries(self.table,
-                                                       with_features=False)
-        active = keys[self._mesh_weights(weights, hits) >=
-                      self.min_pts_in_grid]
-        if len(active) == 0:
-            return None
+        box = self._prefetched_lattice()
+        lattice = active = None
+        if box is not None:
+            n = box["n"]
+            gate = self._mesh_weights(
+                self.table.weights[:n].cpu().numpy(),
+                self.table.num_hits[:n].cpu().numpy()) >= self.min_pts_in_grid
+            if not gate.any():
+                return None
+            points, corner_idx, cells = box["lattice"]
+            sel = gate[box["owner_rows"]]
+            lattice = (points, corner_idx[sel], cells[sel])
+        else:
+            keys, _, weights, hits, _ = tbl.active_entries(
+                self.table, with_features=False)
+            active = keys[self._mesh_weights(weights, hits) >=
+                          self.min_pts_in_grid]
+            if len(active) == 0:
+                return None
+            active = active.astype(np.int32)
         decode, _ = self._mesh_decoder(use_delta)
         return mesh_mod.extract_mesh(
-            lambda batch: decode(batch).cpu().numpy(), active.astype(np.int32),
+            lambda batch: decode(batch).cpu().numpy(), active,
             self.bound_min.cpu().numpy(), self.voxel_size,
             batch_size=batch_size, mask_sentinel=True,
-            lattice_scale=int(getattr(m, "mesh_lattice_scale", 2)))
+            lattice_scale=int(getattr(m, "mesh_lattice_scale", 2)),
+            lattice=lattice)
 
     def _inc_changed_mask(self):
         """(latent-change mask [n] bool on the host, device snapshot).
@@ -593,10 +832,12 @@ class NeuralMap:
         """Replace the table by the entries of a saved
         ``*_sparse_volume.npz`` (either package's)."""
         data = ckpt_io.load_state(path)
-        self.table = table_dense.load_entries(
-            self.n_xyz, self.table.capacity, data["active_coordinates"],
-            data["features"], data["weights"], data["num_hits"],
-            device=self.device)
+        self.table = tbl.load_entries(
+            self.table, data["active_coordinates"], data["features"],
+            data["weights"], data["num_hits"])
+        # a new key set: a lattice prefetched from the old table is stale
+        # even where the counts match (the JAX package does not bump here)
+        self._fuse_epoch += 1
 
     def set_tsdf_prior(self, metric: np.ndarray):
         """Install a metric TSDF prior of the volume's shape (normalized by

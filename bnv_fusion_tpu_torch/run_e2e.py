@@ -111,11 +111,14 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
         if viewer is not None:
             viewer.close()
 
+    # read the lagged overflow copies still queued (auto widths), then
+    # surface width misfits instead of dropping voxels silently
+    nmap._note_overflow(flush=True)
     if nmap.overflow > 0:
         log.warning(
             f"table overflow = {nmap.overflow}: the compaction widths "
             f"(model.max_unique_per_frame / max_unique_cells_per_frame) "
-            f"dropped observations — widen them")
+            f"dropped observations — widen them or set them to 'auto'")
 
     nmap.timer.start("mesh")
     before = nmap.extract_mesh()

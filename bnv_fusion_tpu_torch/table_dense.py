@@ -94,6 +94,68 @@ def lookup_coords3(table: DenseIndexedTable, cx, cy, cz, inside):
     return slots.clamp(min=0), found
 
 
+def insert(table: DenseIndexedTable, new_keys: torch.Tensor,
+           valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Insert-or-find [M, 3] integer keys, duplicates allowed, in place.
+
+    Each distinct new voxel takes its slot at its first occurrence in the
+    batch (a scatter-min of batch positions into a dense claim array), and
+    the new voxels take contiguous slots in the order of those first
+    occurrences, as the JAX package assigns them.  Those beyond capacity
+    are dropped and counted in ``table.overflow``.  Returns (slots [M]
+    int64 clamped to >= 0, ok [M])."""
+    m = new_keys.shape[0]
+    cap = table.capacity
+    n_vox = table.n_voxels
+    dev = new_keys.device
+    flat, inside = _flat_ids(table, new_keys, valid)
+    flat_safe = flat.clamp(min=0)
+
+    existing = torch.where(inside, table.slot_map[flat_safe].long(), -1)
+    is_new = inside & (existing < 0)
+    pos = torch.arange(m, dtype=torch.int64, device=dev)
+    claim = torch.full((n_vox + 1,), m, dtype=torch.int64, device=dev)
+    claim.scatter_reduce_(0, torch.where(is_new, flat, n_vox),
+                          torch.where(is_new, pos, m), reduce="amin")
+    winner = is_new & (claim[flat_safe] == pos)
+
+    assign = table.n_alloc + torch.cumsum(winner.long(), 0) - 1
+    fits = winner & (assign < cap)
+    n_new_total = winner.sum()
+    n_new_fit = fits.sum()
+    table.slot_map[flat_safe[fits]] = assign[fits].to(torch.int32)
+    table.slot_flat[assign[fits]] = flat_safe[fits].to(torch.int32)
+
+    slots = torch.where(inside, table.slot_map[flat_safe].long(), -1)
+    table.n_alloc = torch.clamp(table.n_alloc + n_new_total, max=cap)
+    table.overflow = table.overflow + (n_new_total - n_new_fit)
+    return slots.clamp(min=0), slots >= 0
+
+
+def insert_unique(table: DenseIndexedTable, keys: torch.Tensor,
+                  valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Insert-or-find [U, 3] keys that are already DEDUPLICATED, in place.
+    Returns (slots [U], ok [U])."""
+    flat, inside = _flat_ids(table, keys, valid)
+    return insert_unique_flat(table, flat, inside)
+
+
+def occupancy(table: DenseIndexedTable) -> torch.Tensor:
+    """Allocated slots (0-d tensor)."""
+    return table.n_alloc
+
+
+def gather_values(table: DenseIndexedTable, slots: torch.Tensor,
+                  found: torch.Tensor):
+    """(features [M, F], weights [M], num_hits [M]) at ``slots``, zero where
+    not ``found``."""
+    zero = torch.zeros((), device=table.device)
+    f = torch.where(found[:, None], table.features[slots], zero)
+    w = torch.where(found, table.weights[slots], zero)
+    h = torch.where(found, table.num_hits[slots], zero)
+    return f, w, h
+
+
 def insert_unique_flat(table: DenseIndexedTable, flat: torch.Tensor,
                        valid: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 Counterpart of bnv_fusion_tpu/tables.py:45-106.  The JAX package routes big
 scenes to block tables and unbounded ones to a hash table; those layouts are
-not ported yet (ROADMAP Queue 1 item 13), so routing to them raises.
+not ported yet (ROADMAP Queue 1 item 13), so routing to them raises, and so
+does every facade call on a table of another kind.
 """
 
 from __future__ import annotations
@@ -32,6 +33,48 @@ def create_table(feat_dims: int, capacity: int, n_xyz=None,
     return _dense.create_dense_table(n_xyz, capacity, feat_dims, device)
 
 
-lookup = _dense.lookup
-insert_unique_flat = _dense.insert_unique_flat
-active_entries = _dense.active_entries
+def _mod(table):
+    if isinstance(table, _dense.DenseIndexedTable):
+        return _dense
+    raise NotImplementedError(
+        f"{type(table).__name__}: only the dense slot-map table is ported "
+        "(ROADMAP Queue 1 item 13)")
+
+
+def insert(table: AnyTable, keys: torch.Tensor, valid: torch.Tensor):
+    """Insert-or-find [M, 3] keys (duplicates allowed), in place ->
+    (slots, ok)."""
+    return _mod(table).insert(table, keys, valid)
+
+
+def lookup(table: AnyTable, query: torch.Tensor,
+           valid: torch.Tensor | None = None):
+    return _mod(table).lookup(table, query, valid)
+
+
+def gather_values(table: AnyTable, slots, found):
+    return _mod(table).gather_values(table, slots, found)
+
+
+def occupancy(table: AnyTable):
+    return _mod(table).occupancy(table)
+
+
+def active_entries(table: AnyTable, with_features: bool = True):
+    return _mod(table).active_entries(table, with_features=with_features)
+
+
+def insert_unique_flat(table: AnyTable, flat: torch.Tensor,
+                       valid: torch.Tensor):
+    """Insert-or-find precomputed voxel flat ids (sort-reduce fuse hot
+    path), in place -> (slots, ok)."""
+    return _mod(table).insert_unique_flat(table, flat, valid)
+
+
+def load_entries(like: AnyTable, coords, features, weights, num_hits
+                 ) -> AnyTable:
+    """Rebuild a table of the same kind, shape and device as ``like`` from
+    saved entries."""
+    return _mod(like).load_entries(like.n_xyz, like.capacity, coords,
+                                   features, weights, num_hits,
+                                   device=like.device)

@@ -53,7 +53,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
      on the saved map and prior with the fused mesh decode: the loaded table
      equals the saved one by voxel key, 48 finite losses, a non-empty
      binary refined_0.ply, the saved refined map, no overflow, and
-     fused_corner_decode launched.
+     fused_corner_decode launched;
+  9. fuse: local fusion at bench.py's operating point (phase_fuse):
+     throughput through integrate_batches, best of 3 passes, and its table
+     equal to sequential integrate_batch calls' bit for bit; auto
+     compaction widths against the explicit ones, and an undersized
+     width_margin that overflows and widens; each fuse option
+     (fuse_sort1_gather, fuse_front_chunks, fuse_dtype=bfloat16,
+     fuse_batch_merge=false, fuse_algorithm=corner) against the default
+     fuse of one K=16 batch, with its seg-reduce launches and peak device
+     memory, the per-frame routes also through a float64-cumsum copy, and
+     K=32 in 2 front chunks; the stage-1 sort's two formulations timed.
+The e2e phase also holds the final mesh's optimize-overlapped lattice
+prefetch: a re-extraction through it launches the decode and equals the
+in-line build (model.mesh_prefetch=false) bit for bit; both are timed,
+then 10 pairs of optimize + final mesh with the prefetch off and on.
 Each phase prints its wall time; the kernels line gives each kernel's
 launches on its path, error, times and bound: the larger of the bytes the
 function must move over 3.35 TB/s and its operations over the peak rate of
@@ -136,6 +150,27 @@ BIAS_STD = 0.1
 # pass, modelled in numpy, would miss by ~6e-3)
 MLP_ATOL = MLP_RTOL = 1e-4
 ENC_ROWS = 480 * 640 * 8          # profiling/profile_fused_mlp.py:16
+# the prefetch on/off measurement: pairs of run_e2e's optimize (64 steps,
+# the fast_e2e budget) plus the final extract_mesh, in alternating order
+PREFETCH_ITERS = 64
+PREFETCH_PAIRS = 10
+# the fuse routes on the per-frame cumsum front (fuse_batch_merge=false,
+# fuse_algorithm=corner), against the kernel front with an exact-f32 stage 2
+# (fuse_sort_bf16=false):
+# - the route with its cumsum and the table's features in float64 (the
+#   route's logic without the cumsum's rounding) within WITNESS_ATOL: the
+#   kernel front's own f32 sums (1.7e-7 at 60x80 on the CPU);
+# - the f32 route against that float64 copy: the mean-centered cumsum over
+#   N = 307,200 rows (8N for the corner algorithm) cancels to 4.8e-3 (cell)
+#   and 6.9e-3 (corner) at this point on the H100 (2.5e-4 and 1.2e-4 at
+#   60x80 on the CPU; the JAX package's own test of that front allows 2e-3
+#   at its size): CUMSUM_ATOL;
+# - against the merged route on the same front only the running mean's
+#   order of operations differs (4.8e-7 on the H100): ROUTE_ATOL
+WITNESS_ATOL = 1e-4
+CUMSUM_ATOL = 1e-2
+ROUTE_ATOL = 1e-4
+SORT_REPS = 20                    # timed stage-1 sorts per formulation
 DEC_ROWS = (1 << 18) * 8          # one mesh-lattice batch, 8 corners each
 
 # H100 SXM published peaks (NVIDIA datasheet): HBM, f32 FMA outside the
@@ -779,6 +814,382 @@ def phase_reference(nmap):
           flush=True)
 
 
+def check_prefetch(nmap, final):
+    """The final extract_mesh of run_e2e had a valid mesh-lattice prefetch
+    (the fuse epoch has not moved since the final optimize started it):
+    re-extract through it with the launch counts zeroed (the decode kernel
+    must launch), then with model.mesh_prefetch=false (the in-line lattice
+    build): identical vertices and faces, and post-processed, the run's
+    final mesh.  Prints both mesh times."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import mesh as mesh_mod
+    from bnv_fusion_tpu_torch.kernels import _build
+
+    if nmap._prefetched_lattice() is None:
+        raise AssertionError("no valid mesh-lattice prefetch after the final "
+                             "optimize")
+    meshes, secs, decodes = {}, {}, {}
+    for prefetch in (True, False):
+        nmap.config.model.mesh_prefetch = prefetch
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.time()
+        meshes[prefetch] = nmap.extract_mesh()
+        secs[prefetch] = time.time() - t0
+        decodes[prefetch] = _build.LAUNCHES["fused_corner_decode"]
+    nmap.config.model.mesh_prefetch = True
+    pre, inline = meshes[True], meshes[False]
+    if not (np.array_equal(pre.vertices, inline.vertices) and
+            np.array_equal(pre.faces, inline.faces)):
+        raise AssertionError("the prefetched mesh differs from the in-line "
+                             "build")
+    post = mesh_mod.post_process_mesh(pre,
+                                      vertex_threshold=nmap.voxel_size / 4)
+    if not (np.array_equal(post.vertices, final.vertices) and
+            np.array_equal(post.faces, final.faces)):
+        raise AssertionError("the re-extracted mesh differs from final.ply's")
+    if decodes[True] <= 0:
+        raise AssertionError("the prefetched extract_mesh never launched "
+                             "fused_corner_decode")
+    print(f"  mesh prefetch: extract_mesh {secs[True]:.3f} s through the "
+          f"prefetched lattice, {secs[False]:.3f} s with the in-line build "
+          f"({decodes[True]} and {decodes[False]} fused_corner_decode "
+          f"launches); identical "
+          f"vertices and faces ({len(pre.vertices)} vertices), equal to "
+          f"final.ply after post-processing", flush=True)
+
+    # the prefetch thread runs beside the optimize loop's launches and
+    # saves the final mesh its lattice build: run_e2e's optimize plus the
+    # final extract_mesh, with the prefetch off and on, in pairs of
+    # alternating order on this map; the net is the pair's total
+    import statistics
+    opt, msh = {False: [], True: []}, {False: [], True: []}
+    for pair in range(PREFETCH_PAIRS):
+        for prefetch in ((False, True) if pair % 2 == 0 else (True, False)):
+            nmap.config.model.mesh_prefetch = prefetch
+            nmap._mesh_prefetch = None
+            torch.cuda.synchronize()
+            t0 = time.time()
+            nmap.optimize(n_iters=PREFETCH_ITERS)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            nmap.extract_mesh()
+            torch.cuda.synchronize()
+            opt[prefetch].append((t1 - t0) / PREFETCH_ITERS)
+            msh[prefetch].append(time.time() - t1)
+    nmap.config.model.mesh_prefetch = True
+    total = {p: [o * PREFETCH_ITERS + m for o, m in zip(opt[p], msh[p])]
+             for p in opt}
+    net = [on - off for on, off in zip(total[True], total[False])]
+    med = statistics.median
+    for p in (False, True):
+        print(f"  prefetch {'on ' if p else 'off'}: optimize "
+              f"{', '.join(f'{x:.4f}' for x in opt[p])} s/iter; final mesh "
+              f"{', '.join(f'{x:.3f}' for x in msh[p])} s", flush=True)
+    print(f"  prefetch off / on over {PREFETCH_PAIRS} pairs of "
+          f"{PREFETCH_ITERS} optimize iterations + the final mesh: optimize "
+          f"median {med(opt[False]):.4f} / {med(opt[True]):.4f} s/iter "
+          f"({(med(opt[True]) / med(opt[False]) - 1) * 100:+.1f}%), mesh "
+          f"median {med(msh[False]):.3f} / {med(msh[True]):.3f} s, total "
+          f"median {med(total[False]):.3f} / {med(total[True]):.3f} s; "
+          f"per pair on - off: median {med(net):+.3f} s, on faster in "
+          f"{sum(x < 0 for x in net)} of {len(net)}", flush=True)
+
+
+def table_by_key(nmap):
+    """(keys, features, weights, hits) of a map's table, sorted by key."""
+    import numpy as np
+    from bnv_fusion_tpu_torch import tables as tbl
+
+    keys, feats, w, h, _ = tbl.active_entries(nmap.table)
+    order = np.lexsort(keys.T[::-1])
+    return keys[order], feats[order], w[order], h[order]
+
+
+def same_table(what, a, b, atol=None, rtol=0.0) -> float:
+    """Two tables by key: keys, weights and hits exact; features bit for
+    bit (atol None) or within atol + rtol |b|.  Returns the features' max
+    abs difference."""
+    import numpy as np
+
+    for i, name in ((0, "keys"), (2, "weights"), (3, "hits")):
+        if not np.array_equal(a[i], b[i]):
+            raise AssertionError(f"{what}: {name} differ")
+    diff = np.abs(a[1] - b[1])
+    err = float(diff.max()) if diff.size else 0.0
+    if atol is None:
+        ok = np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+    else:
+        ok = bool(np.all(diff <= atol + rtol * np.abs(b[1])))
+    if not ok:
+        raise AssertionError(f"{what}: features differ, max abs {err:.3e}")
+    return err
+
+
+def sort1_other(pts_w, normals, valid, bound_min, bound_max, voxel_size,
+                n_xyz, n_vox):
+    """The stage-1 sort in its other bit-identical formulation (the JAX
+    package's fuse_sort1_gather): sort the combined (cell, mcode) key with
+    its row index, decode (cell, mcode) from the sorted key, gather only the
+    float payloads."""
+    import torch
+    from bnv_fusion_tpu_torch import fusion
+
+    inside, cell, mcode, coords = fusion._cell_keys(
+        pts_w, valid, bound_min, bound_max, voxel_size, n_xyz, n_vox)
+    zero = torch.zeros((), dtype=coords.dtype, device=coords.device)
+    coords_z = torch.where(inside[..., None], coords, zero)
+    normals_z = torch.where(inside[..., None], normals, zero)
+    key_s, idx = torch.sort(cell.long() * 16 + mcode.long(), dim=-1,
+                            stable=True)
+    o3 = idx[..., None].expand(idx.shape + (3,))
+    return ((key_s // 16).to(torch.int32), (key_s % 16).to(torch.int32),
+            torch.gather(coords_z, -2, o3), torch.gather(normals_z, -2, o3),
+            inside.to(torch.float32).sum(-1))
+
+
+def time_sort1(nm, batch):
+    """The stage-1 sort of one K=16 batch at bench.py's point: the
+    package's _cellsort_sort1 and sort1_other, identical bits, each timed
+    with CUDA events SORT_REPS times in alternation after 2 warm-ups."""
+    import statistics
+    import torch
+    from bnv_fusion_tpu_torch import fusion
+    from bnv_fusion_tpu_torch.pipeline import _frame_points
+
+    st = nm._stack_batch(batch)
+    depths = nm._convert_raw_depth(st["raw"], st["scale"]) if "raw" in st \
+        else nm._tensor(st["depth"])
+    pts = [_frame_points(d, t, i) for d, t, i in
+           zip(depths, nm._tensor(st["T_wc"]), nm._tensor(st["intr"]))]
+    args = tuple(torch.stack([p[j] for p in pts]) for j in range(3)) + (
+        nm.bound_min, nm.bound_max, nm.voxel_size, nm.n_xyz,
+        nm.table.n_voxels)
+    fns = {"package": fusion._cellsort_sort1, "other": sort1_other}
+    for x, y in zip(*(fn(*args) for fn in fns.values())):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError("the two stage-1 sort formulations differ")
+    ms = {k: [] for k in fns}
+    for rep in range(SORT_REPS + 2):
+        for k, fn in fns.items():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn(*args)
+            ev[1].record()
+            ev[1].synchronize()
+            if rep >= 2:
+                ms[k].append(ev[0].elapsed_time(ev[1]))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"  stage-1 sort of {args[0].shape[0]} x {args[0].shape[1]} "
+          f"points, identical bits: the package's {med['package']:.3f} ms, "
+          f"the other formulation {med['other']:.3f} ms (medians of "
+          f"{SORT_REPS}; ranges {min(ms['package']):.3f}-"
+          f"{max(ms['package']):.3f} and {min(ms['other']):.3f}-"
+          f"{max(ms['other']):.3f})", flush=True)
+
+
+def phase_fuse(params, card):
+    """Local fusion at bench.py's operating point (bench.py:59-84: K=16, 48
+    frames, uint16 staging, tsdf_every=4):
+    (a) throughput as bench.py takes it (a warm-up batch, then 3 passes over
+        fresh maps, each timing integrate_batches(batches[1:])); the table
+        must equal sequential integrate_batch calls' bit for bit;
+    (b) auto widths: no overflow, the explicit-width table within 2e-3
+        (tests/test_auto_widths.py:100-105); then width_margin=0.05
+        overflows, widens and keeps the features finite;
+    (c) each fuse option against the default fuse of the same K=16 batch,
+        with its seg-reduce launches and peak device memory; the per-frame
+        routes also against their float64-cumsum copies;
+    (d) the stage-1 sort of one K=16 batch timed in its two bit-identical
+        formulations: the package's, and the JAX package's
+        fuse_sort1_gather one, which the port does not keep.
+    Every check runs; the phase fails at its end if any failed."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import fusion
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.datasets import get_dataset
+    from bnv_fusion_tpu_torch.kernels import _build
+    from bnv_fusion_tpu_torch.pipeline import NeuralMap
+
+    ds = get_dataset(load_config(E2E_OVERRIDES), "val")
+    frames = [ds[i] for i in range(len(ds))]
+    batches = [frames[i:i + 16] for i in range(0, len(frames) - 15, 16)]
+    n_timed = sum(len(b) for b in batches[1:])
+    failed = []
+
+    def new_map(extra=()):
+        return NeuralMap(ds.dimensions,
+                         load_config(E2E_OVERRIDES + list(extra)), params)
+
+    def check(what, fn):
+        try:
+            return fn()
+        except AssertionError as e:
+            failed.append(what)
+            print(f"  FAILED {what}: {e}", flush=True)
+
+    # (a) throughput; integrate_batches == sequential integrate_batch
+    warm = new_map()
+    warm.integrate_batch(batches[0])
+    torch.cuda.synchronize()
+    del warm
+    fps = []
+    for _ in range(3):
+        nm = new_map()
+        nm.integrate_batch(batches[0])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        nm.integrate_batches(batches[1:])
+        torch.cuda.synchronize()
+        fps.append(n_timed / (time.time() - t0))
+    v = sorted(fps)
+    print(f"  fuse throughput via integrate_batches: passes "
+          f"{', '.join(f'{x:.2f}' for x in v)} frames/s; best {v[-1]:.2f}, "
+          f"median {v[1]:.2f}, spread {v[-1] - v[0]:.2f} ({n_timed} frames, "
+          f"K=16); {card}", flush=True)
+    if nm.overflow:
+        failed.append("integrate_batches overflow")
+        print(f"  FAILED integrate_batches: table overflow {nm.overflow}",
+              flush=True)
+    staged = table_by_key(nm)
+    seq = new_map()
+    for b in batches:
+        seq.integrate_batch(b)
+    seq = table_by_key(seq)
+    check("integrate_batches == sequential", lambda: same_table(
+        "integrate_batches vs sequential integrate_batch", staged, seq))
+    print(f"  integrate_batches table == sequential integrate_batch table, "
+          f"bit for bit by key ({len(seq[0])} voxels)", flush=True)
+    del seq, nm
+
+    # (b) auto widths against the explicit ones (staged: all 48 frames)
+    auto = ["model.max_unique_per_frame=auto",
+            "model.max_unique_cells_per_frame=auto"]
+    nm = new_map(auto)
+    _build.LAUNCHES.clear()
+    nm.integrate_batches(batches)
+    nm._note_overflow(flush=True)
+    n_seg = _build.LAUNCHES["seg_reduce_sorted"]
+    print(f"  auto widths: probed max_unique_per_frame={nm._widths[0]}, "
+          f"cells={nm._widths[1]} (explicit 116736, 65536); overflow "
+          f"{nm.overflow}; {n_seg} seg_reduce launches for 3 batches",
+          flush=True)
+    if nm.overflow:
+        failed.append("auto widths overflow")
+    err = check("auto == explicit", lambda: same_table(
+        "auto widths vs explicit", table_by_key(nm), staged, atol=2e-3))
+    print(f"  auto-width table vs explicit: keys, weights, hits exact, "
+          f"features max abs diff {err}", flush=True)
+    del nm, staged
+    nm = new_map(auto + ["model.width_margin=0.05"])
+    nm.integrate_batch(batches[0])
+    first = nm._widths
+    nm.integrate_batches(batches[1:])
+    nm._note_overflow(flush=True)
+    widened = nm._widths
+    nm.integrate_batch(batches[1])
+    nm._note_overflow(flush=True)
+    n = int(nm.table.n_alloc)
+    finite = bool(torch.isfinite(nm.table.features[:n]).all())
+    print(f"  width_margin=0.05: widths {first} -> {widened} -> "
+          f"{nm._widths}, overflow seen {nm._overflow_seen}, features "
+          f"finite {finite}", flush=True)
+    if not (nm._overflow_seen > 0 and widened[0] > first[0] and finite):
+        failed.append("width_margin=0.05 widen")
+    del nm
+
+    # (c) options against the default fuse of batches[1]
+    cumsum = fusion._cumsum_rows
+
+    def option(extra, batch=batches[1], float64=False):
+        """The table after fusing ``batch``, its seg-reduce launches, peak
+        GiB and overflow; ``float64``: the cumsum fronts and the table's
+        features in float64 (the route without its cumsum's rounding)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        nm = new_map(extra)
+        if float64:
+            nm.table.features = nm.table.features.double()
+            fusion._cumsum_rows = lambda x: cumsum(x.double())
+        try:
+            nm.integrate_batch(batch)
+        finally:
+            fusion._cumsum_rows = cumsum
+        torch.cuda.synchronize()
+        out = (table_by_key(nm), _build.LAUNCHES["seg_reduce_sorted"],
+               torch.cuda.max_memory_allocated() / 2**30, nm.overflow)
+        del nm
+        return out
+
+    base, n_base, peak16, _ = option([])
+    print(f"  default fuse, K=16: {n_base} seg_reduce launches, peak "
+          f"{peak16:.2f} GiB", flush=True)
+    for name, tol in (("fuse_sort1_gather=true", None),
+                      ("fuse_front_chunks=2", None),
+                      ("fuse_dtype=bfloat16", (0.02, 0.02))):
+        t, n_seg, peak, ovf = option([f"model.{name}"])
+        err = check(name, lambda: same_table(name, t, base,
+                                             *(tol or (None,))))
+        if name == "fuse_dtype=bfloat16" and np.array_equal(t[1], base[1]):
+            failed.append(name)
+            print(f"  FAILED {name}: features equal the float32 fuse's",
+                  flush=True)
+        print(f"  {name}: {n_seg} seg_reduce launches, peak {peak:.2f} GiB, "
+              f"overflow {ovf}; vs the default: keys, weights, hits exact, "
+              f"features max abs diff {err} "
+              f"({'bit for bit' if tol is None else f'tolerance {tol}'})",
+              flush=True)
+    # the per-frame routes' references: the kernel front with an exact-f32
+    # stage 2, and the merged route on the per-frame cumsum front (the
+    # unmerged route's own front)
+    exact = option(["model.fuse_sort_bf16=false"])[0]
+    front = option(["model.use_seg_reduce_kernel=false"])[0]
+    for name in ("fuse_batch_merge=false", "fuse_algorithm=corner"):
+        t, n_seg, peak, ovf = option([f"model.{name}"])
+        t64 = option([f"model.{name}"], float64=True)[0]
+        e64 = check(f"{name} float64 copy", lambda: same_table(
+            f"{name} with a float64 cumsum vs the kernel front", t64, exact,
+            WITNESS_ATOL))
+        e32 = check(f"{name} vs its float64 copy", lambda: same_table(
+            f"{name} vs its float64-cumsum copy", t, t64, CUMSUM_ATOL))
+        err = check(name, lambda: same_table(
+            f"{name} vs the kernel front", t, exact, CUMSUM_ATOL))
+        print(f"  {name}: {n_seg} seg_reduce launches, peak {peak:.2f} GiB, "
+              f"overflow {ovf}; keys, weights, hits exact against the "
+              f"default with fuse_sort_bf16=false; features max abs diff: "
+              f"its float64-cumsum copy vs the kernel front {e64} "
+              f"(tolerance {WITNESS_ATOL}), the route vs its float64 copy "
+              f"{e32} and vs the kernel front {err} (tolerance "
+              f"{CUMSUM_ATOL})", flush=True)
+        if name == "fuse_batch_merge=false":
+            err = check(f"{name} vs the same front", lambda: same_table(
+                f"{name} vs the merged route on the per-frame front", t,
+                front, ROUTE_ATOL))
+            print(f"  {name} vs the merged route on the same per-frame "
+                  f"front (use_seg_reduce_kernel=false): features max abs "
+                  f"diff {err} (tolerance {ROUTE_ATOL})", flush=True)
+        del t, t64
+    del base, exact, front
+    big = {}
+    for chunks in (2, 1):
+        t, n_seg, peak, ovf = option(["model.integrate_batch_size=32",
+                                      f"model.fuse_front_chunks={chunks}"],
+                                     frames[:32])
+        big[chunks] = t
+        print(f"  K=32, fuse_front_chunks={chunks}: {n_seg} seg_reduce "
+              f"launches, peak {peak:.2f} GiB (K=16, 1 chunk: "
+              f"{peak16:.2f} GiB), overflow {ovf}", flush=True)
+    check("K=32 chunks", lambda: same_table(
+        "K=32: front_chunks=2 vs 1", big[2], big[1]))
+    del big
+    check("stage-1 sort", lambda: time_sort1(new_map(), batches[1]))
+    if failed:
+        raise AssertionError(f"fuse checks failed: {', '.join(failed)}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bnv_fusion_tpu_torch")):
         return fail("bnv_fusion_tpu_torch/ not found beside chip_smoke.py; "
@@ -865,8 +1276,9 @@ def main() -> int:
             return fail("table features are not finite")
         print(f"  final.ply: {n_v} vertices, {n_f} faces", flush=True)
         phase_reference(nmap)
-        print(f"phase e2e: {time.time() - t0:.1f} s (reference check "
-              "included)", flush=True)
+        check_prefetch(nmap, out["final"])
+        print(f"phase e2e: {time.time() - t0:.1f} s (reference and "
+              "prefetch checks included)", flush=True)
         del out, nmap
 
         print("phase demo: run_e2e model.mode=demo at bench_demo's point",
@@ -894,6 +1306,11 @@ def main() -> int:
         if off_launches.get("fused_corner_decode", 0) <= 0:
             return fail("the offline flow never launched fused_corner_decode")
         print(f"phase offline: {time.time() - t0:.1f} s", flush=True)
+
+        print("phase fuse: local fusion at bench.py's point", flush=True)
+        t0 = time.time()
+        phase_fuse(params, card)
+        print(f"phase fuse: {time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

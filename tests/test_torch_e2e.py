@@ -184,12 +184,12 @@ def test_cuda_device_type_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("model.fuse_dtype=bfloat16", 5), ("model.fuse_color=true", 6),
+    ("model.optim_dtype=bfloat16", 9), ("model.fuse_color=true", 6),
     ("model.error_guided_sampling=true", 12),
     ("trainer.optim_early_stop=true", 9), ("model.decode_layout=fm", 8),
-    ("model.fuse_front_chunks=2", 5), ("model.fuse_sort1_gather=true", 5),
+    ("model.mesh_decode_layout=fm", 8), ("trainer.fuse_devices=2", 14),
     ("trainer.optimize_devices=2", 14),
-    ("model.max_unique_per_frame=auto", 5),
+    ("model.tsdf_layout=blocks", 13),
     ("model.table_layout=spatial", 14)])
 def test_unsupported_options_raise(override, item):
     cfg = tload_config(OVERRIDES + ["device_type=cpu", override])
@@ -213,7 +213,7 @@ def guarded(name, *a, **k):
     return real_import(name, *a, **k)
 builtins.__import__ = guarded
 import numpy as np, torch
-from bnv_fusion_tpu_torch import fusion, tables, nn
+from bnv_fusion_tpu_torch import fusion, tables, table_dense, nn, mesh
 from bnv_fusion_tpu_torch.config import load_config
 from bnv_fusion_tpu_torch.datasets import get_dataset
 from bnv_fusion_tpu_torch.pipeline import _frame_points
@@ -238,6 +238,20 @@ fusion.fuse_frame_cellsort(table, nn.init_model(0), pw, nw, va,
                            t([-1.34, -1.34, -0.84]), t([1.34, 1.34, 0.84]),
                            0.04, 1, max_unique=4096, max_unique_cells=2048)
 assert int(table.n_alloc) > 0
+g, c = fusion.frame_width_counts(pw, va, t([-1.34, -1.34, -0.84]),
+                                 t([1.34, 1.34, 0.84]), 0.04, (70, 70, 45),
+                                 70 * 70 * 45)
+assert 0 < int(g) <= int(c)
+corner = tables.create_table(8, 4096, n_xyz=(70, 70, 45))
+fusion.fuse_frame(corner, nn.init_model(0), pw, nw, va,
+                  t([-1.34, -1.34, -0.84]), t([1.34, 1.34, 0.84]), 0.04, 1,
+                  compute_dtype=torch.bfloat16, max_unique=8192,
+                  algorithm="corner")
+assert int(tables.occupancy(corner)) == int(c)
+slots, ok = tables.insert(corner, t([[1, 2, 3], [1, 2, 3]]),
+                          t([True, True]))
+assert bool(ok.all()) and int(slots[0]) == int(slots[1])
+assert len(mesh.cell_owner_voxel(np.zeros((2, 3), np.int64))) == 2
 assert not any(m.split(".")[0] in blocked for m in sys.modules)
 print("ok")
 """
