@@ -642,14 +642,17 @@ def decode_prepare(table, pts: torch.Tensor, bound_min, voxel_size: float,
 def decode_eval(gathered_feats: torch.Tensor, prep: DecodePrep,
                 params: Dict[str, Any], voxel_size: float,
                 min_pts_in_grid: int,
-                masked_fill: Optional[float] = None) -> torch.Tensor:
+                masked_fill: Optional[float] = None,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Feature-dependent tail of decode_points; differentiable w.r.t.
-    ``gathered_feats`` (= features[prep.slots])."""
+    ``gathered_feats`` (= features[prep.slots]).  ``compute_dtype`` rounds
+    the decoder's operands (``nn.mlp_apply``)."""
     m = prep.tw.shape[0]
     zero = torch.zeros((), device=gathered_feats.device)
     feats = torch.where(prep.found[:, None], gathered_feats,
                         zero).reshape(m, 8, -1)
-    alpha = bnn.decoder_apply(params, prep.local, feats)[..., 0]
+    alpha = bnn.decoder_apply(params, prep.local, feats,
+                              compute_dtype=compute_dtype)[..., 0]
     sdf = torch.sum(alpha * voxel_size * prep.tw, dim=-1)
     mask = torch.amin(prep.w, dim=-1) >= min_pts_in_grid
     fill = voxel_size if masked_fill is None else masked_fill
@@ -666,21 +669,31 @@ def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
                   is_coords: bool = False, use_fused_kernel: bool = False,
                   masked_fill: Optional[float] = None,
                   layout: str = "rows",
-                  packed_decoder: Optional[torch.Tensor] = None
+                  packed_decoder: Optional[torch.Tensor] = None,
+                  compute_dtype: torch.dtype = torch.float32
                   ) -> torch.Tensor:
     """SDF at world points (or voxel coords) [M, 3] via 8-corner decode +
     blend: corners under min_pts weight mask the point (+voxel_size, or
     ``masked_fill``), the nearest-sampled prior is added.  With
     ``use_fused_kernel`` the PE + MLP + blend run in ``fused_corner_decode``
-    (forward only), on ``packed_decoder`` (its ``packed``) where given."""
-    if layout != "rows":
-        raise NotImplementedError(
-            "decode_layout=fm is not ported yet (ROADMAP Queue 1 item 8)")
+    (forward only), on ``packed_decoder`` (its ``packed``) where given.
+    ``layout="fm"`` takes ``decode_points_fm`` unless the fused kernel is
+    on, as in the JAX package (the kernel has its own layout)."""
+    if layout not in ("rows", "fm"):
+        raise ValueError(f"unknown decode layout {layout!r} (rows | fm)")
+    if layout == "fm" and not use_fused_kernel:
+        return decode_points_fm(features, table, params, pts, bound_min,
+                                voxel_size, min_pts_in_grid,
+                                sdf_delta=sdf_delta, n_xyz=n_xyz,
+                                is_coords=is_coords,
+                                compute_dtype=compute_dtype,
+                                masked_fill=masked_fill)
     prep = decode_prepare(table, pts, bound_min, voxel_size,
                           sdf_delta=sdf_delta, n_xyz=n_xyz, is_coords=is_coords)
     if not use_fused_kernel:
         return decode_eval(features[prep.slots], prep, params, voxel_size,
-                           min_pts_in_grid, masked_fill=masked_fill)
+                           min_pts_in_grid, masked_fill=masked_fill,
+                           compute_dtype=compute_dtype)
     m = prep.tw.shape[0]
     feats = torch.where(prep.found[:, None], features[prep.slots],
                         torch.zeros((), device=features.device))
@@ -694,6 +707,100 @@ def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
     if prep.delta is not None:
         sdf = sdf + torch.sum(prep.delta * prep.tw, dim=-1)
     return sdf
+
+
+def decode_points_fm(features: torch.Tensor, table, params: Dict[str, Any],
+                     pts: torch.Tensor, bound_min, voxel_size: float,
+                     min_pts_in_grid: int,
+                     sdf_delta: Optional[torch.Tensor] = None, n_xyz=None,
+                     is_coords: bool = False,
+                     compute_dtype: torch.dtype = torch.float32,
+                     masked_fill: Optional[float] = None) -> torch.Tensor:
+    """``decode_points`` with feature-major internals (counterpart of
+    bnv_fusion_tpu/fusion.py:1029-1128): coordinates [3, M], corners
+    [8, 3, M], decoder activations [C, 8M] with the corner-major point
+    order k * M + i, so the decoder is W^T @ X on wide operands.  The
+    corners are where(pattern, ceil, floor) of the coordinates, blended
+    with normalized trilinear weights; differentiable w.r.t. ``features``
+    and ``pts``."""
+    if not isinstance(table, _dense.DenseIndexedTable):
+        raise NotImplementedError(
+            "decode_points_fm on a non-dense table is not ported yet "
+            "(ROADMAP Queue 1 item 13)")
+    m = pts.shape[0]
+    dev = pts.device
+    zero = torch.zeros((), device=dev)
+    ptsT = pts.T                                            # [3, M]
+    if is_coords:
+        coordsT = ptsT
+    else:
+        bmin = torch.as_tensor(bound_min, dtype=pts.dtype, device=dev)
+        coordsT = (ptsT - bmin[:, None]) / voxel_size
+    fl, ce = torch.floor(coordsT), torch.ceil(coordsT)
+    patb = voxel.corner_pattern(dev).bool()[:, :, None]     # [8, 3, 1]
+    corT = torch.where(patb, ce[None], fl[None])            # [8, 3, M]
+    localT = coordsT[None] - corT                           # [8, 3, M]
+    w8 = torch.prod(1.0 - torch.abs(localT), dim=1)         # [8, M]
+    tw = w8 / torch.clamp(torch.sum(w8, dim=0, keepdim=True), min=1e-12)
+
+    cor_i = corT.detach().to(torch.int32)
+    nx = table.n_xyz
+    inside = ((cor_i[:, 0] >= 0) & (cor_i[:, 0] < nx[0]) &
+              (cor_i[:, 1] >= 0) & (cor_i[:, 1] < nx[1]) &
+              (cor_i[:, 2] >= 0) & (cor_i[:, 2] < nx[2]))   # [8, M]
+    slots, found = _dense.lookup_coords3(table, cor_i[:, 0], cor_i[:, 1],
+                                         cor_i[:, 2], inside)
+    flat_slots = slots.reshape(8 * m)                       # corner-major
+    foundf = found.reshape(8 * m)
+    w = torch.where(foundf, table.weights[flat_slots], zero).reshape(8, m)
+    featsT = torch.where(foundf[None, :], features[flat_slots].T, zero)
+
+    # PE channel order [xyz, sin(xyz), cos(xyz)], points in flat_slots' order
+    local_c = localT.transpose(0, 1).reshape(3, 8 * m)
+    pe = torch.cat([local_c, torch.sin(local_c), torch.cos(local_c)], dim=0)
+    x = torch.cat([pe, featsT.to(pe.dtype)], dim=0)          # [9 + F, 8M]
+
+    dec = params["decoder"]
+    n_hidden = sum(1 for k in dec if k.startswith("w") and k != "w_out")
+    h = bnn.round_to(x, compute_dtype)
+    for i in range(n_hidden):
+        h = bnn.round_to(dec[f"w{i}"], compute_dtype).T @ h + \
+            dec[f"b{i}"][:, None]
+        h = bnn.round_to(torch.relu(h), compute_dtype)
+    alpha = bnn.round_to(dec["w_out"], compute_dtype).T @ h + \
+        dec["b_out"][:, None]                               # [1, 8M]
+    sdf = torch.sum(alpha.reshape(8, m) * voxel_size * tw, dim=0)
+
+    mask = torch.amin(w, dim=0) >= min_pts_in_grid
+    fill = voxel_size if masked_fill is None else masked_fill
+    sdf = torch.where(mask, sdf, torch.full((), fill, device=dev))
+    if sdf_delta is not None:
+        delta = _sample_delta_nearest(sdf_delta, cor_i.permute(0, 2, 1), n_xyz)
+        sdf = sdf + torch.sum(delta * tw, dim=0)
+    return sdf
+
+
+def sdf_gradient(features: torch.Tensor, table, params: Dict[str, Any],
+                 pts: torch.Tensor, bound_min, voxel_size: float,
+                 min_pts_in_grid: int, normalize: bool = True,
+                 **decode_kwargs) -> torch.Tensor:
+    """SDF spatial gradients (surface normals) [M, 3] at world points: one
+    ``torch.autograd.grad`` of ``decode_points(...).sum()`` w.r.t. the
+    points (counterpart of bnv_fusion_tpu/fusion.py:1208-1228), divided by
+    ``||g|| + 1e-5`` when ``normalize``.  The fused decode kernel has no
+    backward, so ``use_fused_kernel=True`` raises."""
+    if decode_kwargs.get("use_fused_kernel"):
+        raise ValueError("sdf_gradient needs the decode's backward, and the "
+                         "fused decode kernel is forward only: call it with "
+                         "use_fused_kernel=False")
+    p = pts.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        s = decode_points(features.detach(), table, params, p, bound_min,
+                          voxel_size, min_pts_in_grid, **decode_kwargs).sum()
+        (g,) = torch.autograd.grad(s, p)
+    if normalize:
+        g = g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-5)
+    return g
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@ Counterpart of bnv_fusion_tpu/nn.py:31-133.  Parameters are plain dicts of
 ``w``/``b`` tensors (``w`` stored [in, out]), the same layout as the JAX
 package's pytrees, so ``params_from_numpy`` moves weights between the two
 packages unchanged.  ``compute_dtype=torch.bfloat16`` (the fuse path's
-``model.fuse_dtype``) rounds every matmul operand to bfloat16 and multiplies
-in float32, as the JAX package's bf16 products with float32 accumulation
-do; torch's own bf16 matmul would round the product as well.
+``model.fuse_dtype``, and the optimize loss's ``model.optim_dtype``)
+rounds every matmul operand to bfloat16 and multiplies in float32, as the
+JAX package's bf16 products with float32 accumulation do; torch's own bf16
+matmul would round the product as well.
 """
 
 from __future__ import annotations
@@ -75,12 +76,15 @@ def encoder_global_apply(params: Dict[str, Any], pts6: torch.Tensor,
 
 
 def decoder_apply(params: Dict[str, Any], local_xyz: torch.Tensor,
-                  feats: torch.Tensor, num_pe_fns: int = 1) -> torch.Tensor:
-    """SDF decoder: (local offset in voxel units, latent) -> raw SDF [..., 1].
+                  feats: torch.Tensor, num_pe_fns: int = 1,
+                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """SDF decoder: (local offset in voxel units, latent) -> raw SDF [..., 1],
+    operands rounded to ``compute_dtype`` as in ``mlp_apply``.
 
     The raw output is normalized; callers multiply by voxel_size."""
     pe = positional_encoding(local_xyz, num_fns=num_pe_fns)
-    return mlp_apply(params["decoder"], torch.cat([pe, feats.to(pe.dtype)], -1))
+    return mlp_apply(params["decoder"], torch.cat([pe, feats.to(pe.dtype)], -1),
+                     compute_dtype)
 
 
 def _init_mlp(rs: np.random.RandomState, dims,

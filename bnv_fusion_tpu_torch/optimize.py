@@ -1,6 +1,7 @@
 """Global-level fusion: render-loss optimization of the sparse volume latents.
 
-Counterpart of bnv_fusion_tpu/optimize.py:38-258.  One step samples rays
+Counterpart of bnv_fusion_tpu/optimize.py:38-258 and the early-stop rule
+of bnv_fusion_tpu/pipeline.py:995-1059.  One step samples rays
 from a depth frame, splits them into chunks, differentiates each chunk's
 loss with respect to the GATHERED latent rows (sparse cotangents, via
 ``torch.autograd``), bumps the decode-mask weights of the touched voxels
@@ -21,7 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from bnv_fusion_tpu_torch import fusion, geometry, render
+from bnv_fusion_tpu_torch import fusion, geometry, render, sampler
 
 
 @dataclass
@@ -90,16 +91,28 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
                        min_pts_in_grid: int, truncated_units: int,
                        truncated_dist: float, ray_max_dist: float,
                        n_rays: int, train_ray_splits: int, lr: float = 1e-3,
-                       neighbor_kernel: int = 3, parallel_chunks: bool = False,
+                       compute_dtype: torch.dtype = torch.float32,
+                       neighbor_kernel: int = 3, error_guided: bool = False,
+                       decode_layout: str = "rows",
+                       parallel_chunks: bool = False,
                        n_fine: int = 0, n_coarse: int = 0,
                        grad_scatter: str = "sortreduce"):
     """Build ``step(state, table, depth, T_wc, intr, bound_min, n_xyz,
-    sdf_delta, generator=None, pixel_ids=None, uniforms=None, lr_scale=1.0)
-    -> (state, loss)``.
+    sdf_delta, generator=None, pixel_ids=None, uniforms=None, lr_scale=1.0,
+    error_map=None, pixel_generator=None) -> (state, loss)``.
 
     The step updates ``state`` in place.  ``pixel_ids`` [n_rays] and
     ``uniforms`` (one (fine, coarse) pair per chunk) replace the draws from
-    ``generator``."""
+    ``generator``.  ``compute_dtype`` rounds the decoder's operands in the
+    loss (``model.optim_dtype``); the latents and the Adam state stay
+    float32.  With ``error_guided`` the step takes the frame's patch error
+    map, draws the pixels with ``sampler.sample_pixels`` from
+    ``pixel_generator`` (a generator on the map's device) unless
+    ``pixel_ids`` are given, and returns ``(state, loss, new_map)``: the
+    map updated with every chunk's per-ray errors, in chunk order.
+    ``decode_layout`` is accepted and unused, as in the JAX package's
+    single-device step: the loss always decodes in the rows layout."""
+    del decode_layout
     if n_rays % train_ray_splits:
         raise ValueError("n_rays must be a multiple of train_ray_splits")
     n_chunks = n_rays // train_ray_splits
@@ -110,8 +123,12 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
              sdf_delta, generator: Optional[torch.Generator] = None,
              pixel_ids: Optional[torch.Tensor] = None,
              uniforms: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
-             lr_scale: float = 1.0):
+             lr_scale: float = 1.0, error_map: Optional[torch.Tensor] = None,
+             pixel_generator: Optional[torch.Generator] = None):
         dev = depth.device
+        if error_guided and pixel_ids is None:
+            pixel_ids = sampler.sample_pixels(
+                pixel_generator or generator, error_map, depth.shape, n_rays)
         rays = build_rays_from_frame(depth, T_wc, intr, ray_max_dist, n_rays,
                                      neighbor_kernel=neighbor_kernel,
                                      pixel_ids=pixel_ids, generator=generator)
@@ -123,7 +140,7 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
         w0 = state.weights
         weights = w0
         bump_sum = torch.zeros_like(w0)
-        losses, gidx_all, grows_all = [], [], []
+        losses, ray_errs, gidx_all, grows_all = [], [], [], []
         for c in range(n_chunks):
             sl = slice(c * train_ray_splits, (c + 1) * train_ray_splits)
             chunk = render.Rays(
@@ -138,10 +155,14 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
                 weights=w_in)
             gfeats = state.features[prep.slots].detach().requires_grad_(True)
             with torch.enable_grad():
-                loss = render.eval_render_loss(
+                out = render.eval_render_loss(
                     gfeats, prep, params, chunk, pts, cam_loc, voxel_size,
-                    min_pts_in_grid, truncated_dist)
+                    min_pts_in_grid, truncated_dist,
+                    compute_dtype=compute_dtype, per_ray=error_guided)
+                loss = out[0] if error_guided else out
                 (g_rows,) = torch.autograd.grad(loss, gfeats)
+            if error_guided:
+                ray_errs.append(out[1].detach())
             bumped = fusion.bump_optim_weights(w_in, prep.slots, prep.found)
             if parallel_chunks:
                 bump_sum = bump_sum + (bumped - w0)
@@ -155,6 +176,38 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
                                         torch.cat(grows_all), cap,
                                         method=grad_scatter)
         _adam_update(state, grads, lr, float(lr_scale))
-        return state, torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        if error_guided:
+            return state, loss, sampler.update_error_map(
+                error_map, depth.shape, pixel_ids, torch.cat(ray_errs))
+        return state, loss
 
     return step
+
+
+class EarlyStop:
+    """``trainer.optim_early_stop``'s rule over launch groups (counterpart
+    of bnv_fusion_tpu/pipeline.py:1046-1059): ``update`` takes one full
+    group's losses (device tensors or floats) and returns True once the
+    loop should stop.  A group's mean is read one group late: it waits
+    until the next group is queued, so the read does not stall the queue,
+    and the last group is never judged.  The best mean improves only below
+    best * (1 - rel); ``patience`` judged groups in a row without that end
+    the loop."""
+
+    def __init__(self, rel: float, patience: int):
+        self.rel, self.patience = float(rel), int(patience)
+        self.best, self.stale = float("inf"), 0
+        self._pending: List[Any] = []
+
+    def update(self, group_losses) -> bool:
+        self._pending.append(group_losses)
+        if len(self._pending) < 2:
+            return False
+        val = float(torch.stack([torch.as_tensor(x, dtype=torch.float32)
+                                 for x in self._pending.pop(0)]).mean())
+        if val < self.best * (1.0 - self.rel):
+            self.best, self.stale = val, 0
+        else:
+            self.stale += 1
+        return self.stale >= self.patience

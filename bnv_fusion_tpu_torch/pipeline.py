@@ -14,6 +14,7 @@ comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -24,7 +25,7 @@ import torch
 from bnv_fusion_tpu_torch import checkpoint as ckpt_io
 from bnv_fusion_tpu_torch import fusion, geometry, mesh as mesh_mod
 from bnv_fusion_tpu_torch import nn as bnn
-from bnv_fusion_tpu_torch import optimize, tsdf
+from bnv_fusion_tpu_torch import optimize, sampler, tsdf
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel as vx
 from bnv_fusion_tpu_torch.kernels import fused_decode
@@ -62,17 +63,6 @@ def check_supported(config) -> None:
         v = str(getattr(t, name, 1))
         if v in ("all", "0") or int(v) > 1:
             refuse(f"trainer.{name}={v}", 14)
-    if bool(getattr(m, "fuse_color", False)):
-        refuse("model.fuse_color", 6)
-    if bool(getattr(m, "error_guided_sampling", False)):
-        refuse("model.error_guided_sampling", 12)
-    if bool(getattr(t, "optim_early_stop", False)):
-        refuse("trainer.optim_early_stop", 9)
-    for name in ("decode_layout", "mesh_decode_layout"):
-        if str(getattr(m, name, "rows")) == "fm":
-            refuse(f"model.{name}=fm", 8)
-    if str(getattr(m, "optim_dtype", "float32")) != "float32":
-        refuse(f"model.optim_dtype={m.optim_dtype}", 9)
 
 
 class Timer:
@@ -149,8 +139,12 @@ class NeuralMap:
             raise NotImplementedError(
                 f"a prior grid of {prior_vox} voxels routes to the block-major "
                 "TSDF volume, which is not ported yet (ROADMAP Queue 1 item 13)")
+        # model.fuse_color: an RGB running mean in the prior, read by
+        # extract_mesh for vertex colours (geometry is unaffected)
+        self.fuse_color = bool(getattr(m, "fuse_color", False))
         self.tsdf_vol, _ = tsdf.create_tsdf_volume(
-            self.dimensions, self.tsdf_voxel_size, device=self.device)
+            self.dimensions, self.tsdf_voxel_size, device=self.device,
+            with_color=self.fuse_color)
 
         # compaction widths: ints from the config, or "auto" = sized from an
         # occupancy probe of the first batch (fusion.frame_width_counts) with
@@ -185,6 +179,12 @@ class NeuralMap:
                 else None)
         self.timer = Timer(["local", "global", "mesh", "inc_mesh"], sync=sync)
         self.optimize_losses: List[float] = []
+        self.last_optimize_iters = 0
+        # model.error_guided_sampling: one patch error map per frame, keyed
+        # by the frame's index in self.frames and kept across optimize calls;
+        # the pixels are drawn on the maps' device by _pixel_generator
+        self.error_maps: Dict[int, torch.Tensor] = {}
+        self._pixel_generator: Optional[torch.Generator] = None
         # per-frame mean points per touched voxel, kept on the device until
         # read (fetching each would sync every frame)
         self._pending_stats: List[torch.Tensor] = []
@@ -289,9 +289,10 @@ class NeuralMap:
         self._overflow_seen = max(self._overflow_seen,
                                   int(self.table.overflow))
 
-    def _fuse_dtype(self) -> torch.dtype:
-        """model.fuse_dtype: the encoder's operand precision."""
-        return (torch.bfloat16 if str(getattr(self.config.model, "fuse_dtype",
+    def _model_dtype(self, name: str) -> torch.dtype:
+        """An operand precision of the config's model: ``fuse_dtype`` (the
+        encoder's) or ``optim_dtype`` (the render loss's decoder)."""
+        return (torch.bfloat16 if str(getattr(self.config.model, name,
                                               "float32")) == "bfloat16"
                 else torch.float32)
 
@@ -331,14 +332,38 @@ class NeuralMap:
             self._window = self._tsdf_window_for(frame0)
             self._window_built = True
 
-    def _integrate_prior(self, depth, T_wc, intr, obs_weight: float = 1.0):
+    def _integrate_prior(self, depth, T_wc, intr, obs_weight: float = 1.0,
+                         rgb=None):
         if self._window is not None:
             tsdf.integrate_windowed(self.tsdf_vol, depth, intr, T_wc,
                                     self.tsdf_voxel_size, self._window,
-                                    self.ray_max_dist, obs_weight=obs_weight)
+                                    self.ray_max_dist, obs_weight=obs_weight,
+                                    rgb=rgb)
         else:
             tsdf.integrate(self.tsdf_vol, depth, intr, T_wc,
-                           self.tsdf_voxel_size, obs_weight=obs_weight)
+                           self.tsdf_voxel_size, obs_weight=obs_weight,
+                           rgb=rgb)
+
+    @staticmethod
+    def _frame_rgb(frame) -> np.ndarray:
+        """A frame's inline ``rgb`` [H, W, 3] (0-255): uint8 kept as it is,
+        so that it crosses to the device at a quarter of the bytes, and
+        anything else as float32 (``_rgb_tensor`` makes both float32 on the
+        device, the JAX package's values).  The JAX package also decodes
+        ``img_path`` with cv2; the port reads no image files yet (the
+        dataset readers, ROADMAP Queue 1 item 12)."""
+        if frame.get("rgb") is not None:
+            rgb = np.asarray(frame["rgb"])
+            return rgb if rgb.dtype == np.uint8 else rgb.astype(np.float32)
+        path = frame.get("img_path")
+        if path and os.path.exists(path):
+            raise NotImplementedError(
+                "model.fuse_color on a frame that carries only an img_path: "
+                "reading image files is not ported yet (ROADMAP Queue 1 "
+                "item 12); pass the frame's 'rgb' inline")
+        raise ValueError(
+            "model.fuse_color is on but the frame carries neither 'rgb' nor "
+            "a readable 'img_path'")
 
     @property
     def stats(self) -> List[float]:
@@ -356,20 +381,25 @@ class NeuralMap:
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    def _fuse_one(self, depth, T_wc, intr) -> fusion.FrameStats:
+    def _rgb_tensor(self, rgb: np.ndarray) -> torch.Tensor:
+        """Host colour (uint8 or float32) -> float32 on the device."""
+        return torch.as_tensor(rgb, device=self.device).to(torch.float32)
+
+    def _fuse_one(self, depth, T_wc, intr, rgb=None) -> fusion.FrameStats:
         """The per-frame step: ``fusion.fuse_frame`` by
-        ``model.fuse_algorithm`` and ``fuse_dtype``, then the prior at
-        obs_weight 1."""
+        ``model.fuse_algorithm`` and ``fuse_dtype``, then the prior (and its
+        colour, given ``rgb``) at obs_weight 1."""
         max_unique, mu_cells = self._width_values()
         pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
         stats = fusion.fuse_frame(
             self.table, self.params, pts_w, normals_w, valid, self.bound_min,
             self.bound_max, self.voxel_size, self.min_pts_in_grid,
-            compute_dtype=self._fuse_dtype(), max_unique=max_unique,
+            compute_dtype=self._model_dtype("fuse_dtype"),
+            max_unique=max_unique,
             algorithm=str(getattr(self.config.model, "fuse_algorithm",
                                   "cell")),
             max_unique_cells=mu_cells)
-        self._integrate_prior(depth, T_wc, intr)
+        self._integrate_prior(depth, T_wc, intr, rgb=rgb)
         return stats
 
     def integrate(self, frame: Dict[str, Any]):
@@ -382,21 +412,24 @@ class NeuralMap:
         depth = self._tensor(frame["depth"])
         T_wc = self._tensor(frame["T_wc"])
         intr = self._tensor(frame["intr_mat"])
+        rgb = (self._rgb_tensor(self._frame_rgb(frame)) if self.fuse_color
+               else None)
         if self._auto_widths:
             staged = (depth[None], T_wc[None], intr[None])
             if self._widths is None:
                 self._size_widths(*staged)
             self._last_staged_dev = staged
-        stats = self._fuse_one(depth, T_wc, intr)
+        stats = self._fuse_one(depth, T_wc, intr, rgb)
         self._note_overflow()
         self._pending_stats.append(stats.n_avg_pts.reshape(1))
         self._fuse_epoch += 1
         self.frames.append({"depth": depth, "T_wc": T_wc, "intr": intr,
                             "frame_id": frame.get("frame_id")})
 
-    def _stack_batch(self, keep: List[Dict[str, Any]]):
+    def _stack_batch(self, keep: List[Dict[str, Any]], rgb_every: int = 1):
         """Host numpy stacking of a frame batch (uint16 raw depth when every
-        frame carries it)."""
+        frame carries it; under ``model.fuse_color`` the colour of every
+        ``rgb_every``-th frame, the frames the prior reads)."""
         out = {}
         if all(f.get("depth_raw") is not None for f in keep):
             scales = {float(f.get("depth_scale", 1000.0)) for f in keep}
@@ -411,6 +444,9 @@ class NeuralMap:
         out["T_wc"] = np.stack([np.asarray(f["T_wc"], np.float32) for f in keep])
         out["intr"] = np.stack(
             [np.asarray(f["intr_mat"], np.float32) for f in keep])
+        if self.fuse_color:
+            out["rgb"] = np.stack([self._frame_rgb(f)
+                                   for f in keep[::rgb_every]])
         return out
 
     def _convert_raw_depth(self, raw: np.ndarray, scale: float) -> torch.Tensor:
@@ -436,7 +472,8 @@ class NeuralMap:
     def integrate_batch(self, frames: List[Dict[str, Any]]):
         """Fuse K frames with one table update (fusion.fuse_frames_merged);
         the TSDF prior takes every ``model.tsdf_every``-th frame at
-        obs_weight = tsdf_every.  With ``model.fuse_batch_merge=false`` or a
+        obs_weight = tsdf_every (with its ``rgb`` under
+        ``model.fuse_color``).  With ``model.fuse_batch_merge=false`` or a
         ``fuse_algorithm`` other than ``cell*`` the frames run the per-frame
         step one by one instead, the prior on every frame at obs_weight 1
         (``tsdf_every`` does not apply there, as in the JAX package).
@@ -450,23 +487,27 @@ class NeuralMap:
         self._check_window_intr(keep)
         self._ensure_window(keep[0])
         m = self.config.model
-        staged = self._stack_batch(keep)
+        algorithm = str(getattr(m, "fuse_algorithm", "cell"))
+        merged = (bool(getattr(m, "fuse_batch_merge", True)) and
+                  algorithm.startswith("cell"))
+        every = int(getattr(m, "tsdf_every", 1)) if merged else 1
+        staged = self._stack_batch(keep, rgb_every=every)
         if "raw" in staged:
             depths = self._convert_raw_depth(staged["raw"], staged["scale"])
         else:
             depths = self._tensor(staged["depth"])
         T_wcs = self._tensor(staged["T_wc"])
         intrs = self._tensor(staged["intr"])
+        rgbs = (self._rgb_tensor(staged["rgb"]) if "rgb" in staged
+                else [None] * len(keep))
         if self._auto_widths:
             if self._widths is None:
                 self._size_widths(depths, T_wcs, intrs)
             self._last_staged_dev = (depths, T_wcs, intrs)
-        algorithm = str(getattr(m, "fuse_algorithm", "cell"))
-        if not (bool(getattr(m, "fuse_batch_merge", True)) and
-                algorithm.startswith("cell")):
+        if not merged:
             n_avg = torch.cat([
-                self._fuse_one(d, t, i).n_avg_pts.reshape(1)
-                for d, t, i in zip(depths, T_wcs, intrs)])
+                self._fuse_one(d, t, i, c).n_avg_pts.reshape(1)
+                for d, t, i, c in zip(depths, T_wcs, intrs, rgbs)])
         else:
             pts = [_frame_points(d, t, i)
                    for d, t, i in zip(depths, T_wcs, intrs)]
@@ -481,14 +522,14 @@ class NeuralMap:
                 max_unique_cells=mu_cells, max_unique_batch=self._mu_batch,
                 seg_kernel=self._seg_kernel(),
                 sort_bf16=bool(getattr(m, "fuse_sort_bf16", False)),
-                compute_dtype=self._fuse_dtype(),
+                compute_dtype=self._model_dtype("fuse_dtype"),
                 front_chunks=int(getattr(m, "fuse_front_chunks", 1))
             ).n_avg_pts.reshape(-1)
             del pts_w, normals_w, valid
-            every = int(getattr(m, "tsdf_every", 1))
             for j in range(0, len(keep), every):
                 self._integrate_prior(depths[j], T_wcs[j], intrs[j],
-                                      obs_weight=float(every))
+                                      obs_weight=float(every),
+                                      rgb=rgbs[j // every])
         self._note_overflow()
         self._pending_stats.append(n_avg)
         self._fuse_epoch += 1
@@ -514,31 +555,30 @@ class NeuralMap:
         features, count_optim bumps on its weights), written back to the
         table at the end.  ``frame_order``: "random" draws frames i.i.d.,
         "epoch" sweeps the pool in order; None reads
-        ``trainer.optim_frame_order``.  Per-iteration losses land in
-        ``self.optimize_losses``."""
+        ``trainer.optim_frame_order``.  Iterations run in launch groups of
+        ``model.optim_iters_per_launch``.  ``model.optim_dtype`` rounds the
+        loss's decoder operands (the latents and Adam stay float32);
+        ``model.error_guided_sampling`` draws half the rays from each frame's
+        error map, which every group reads as it stood before the group;
+        ``trainer.optim_early_stop`` treats ``n_iters`` as a ceiling
+        (``optimize.EarlyStop``).  Per-iteration losses land in
+        ``self.optimize_losses``, the count in ``self.last_optimize_iters``."""
         if not self.frames:
             return
-        m = self.config.model
+        m, tr = self.config.model, self.config.trainer
         if frame_order is None:
-            frame_order = str(getattr(self.config.trainer,
-                                      "optim_frame_order", "random"))
+            frame_order = str(getattr(tr, "optim_frame_order", "random"))
+        error_guided = bool(getattr(m, "error_guided_sampling", False))
         # the mesh lattice builds on the host while the optimize runs; the
         # next extract_mesh takes it if no frame was fused since
         self.prefetch_mesh_lattice()
         if self._optim_step is None or self._optim_lr != lr:
             self._optim_lr = lr
-            self._optim_step = optimize.make_optimize_step(
-                self.params, voxel_size=self.voxel_size,
-                min_pts_in_grid=self.min_pts_in_grid,
-                truncated_units=self.truncated_units,
-                truncated_dist=self.truncated_dist,
-                ray_max_dist=self.ray_max_dist, n_rays=self.sampling_size,
-                train_ray_splits=self.train_ray_splits, lr=lr,
-                neighbor_kernel=int(getattr(m, "neighbor_kernel", 3)),
-                parallel_chunks=bool(getattr(m, "parallel_ray_chunks", False)),
-                n_fine=int(getattr(m.ray_tracer, "n_fine", 0) or 0),
-                n_coarse=int(getattr(m.ray_tracer, "n_coarse", 0) or 0),
-                grad_scatter=str(getattr(m, "grad_scatter", "sortreduce")))
+            self._optim_step = self.make_optim_step(lr)
+        if error_guided and self._pixel_generator is None:
+            self._pixel_generator = torch.Generator(
+                device=self.device).manual_seed(int(torch.randint(
+                    0, 2 ** 31 - 1, (1,), generator=self.generator)))
         sdf_delta = tsdf.prepare_sdf_delta(
             self.tsdf_vol, self.tsdf_voxel_size, self.truncated_dist,
             self.sdf_delta_weight)
@@ -546,6 +586,9 @@ class NeuralMap:
         lo = 0 if last_frame < 0 else max(0, last_frame)
         frame_pool = self.frames[lo:]
         group = int(getattr(m, "optim_iters_per_launch", 4))
+        stop = (optimize.EarlyStop(float(getattr(tr, "optim_es_rel", 0.005)),
+                                   int(getattr(tr, "optim_es_patience", 3)))
+                if bool(getattr(tr, "optim_early_stop", False)) else None)
         rng = np.random.RandomState(int(torch.randint(
             0, 2 ** 31 - 1, (1,), generator=self.generator)))
         lr_scales = self._optim_lr_scales(n_iters)
@@ -557,19 +600,63 @@ class NeuralMap:
                 fis = (done + np.arange(k)) % len(frame_pool)
             else:
                 fis = rng.randint(0, len(frame_pool), size=k)
+            if error_guided:
+                # the maps as they stand before the group: a frame drawn
+                # twice in it reads this map both times, and its later
+                # update is the one kept (the JAX package's launch group)
+                maps = [self._error_map(lo + int(fi), frame_pool[fi]["depth"])
+                        for fi in fis]
+            group_losses = []
             for j, fi in enumerate(fis):
                 f = frame_pool[fi]
-                state, loss = self._optim_step(
+                out = self._optim_step(
                     state, self.table, f["depth"], f["T_wc"], f["intr"],
                     self.bound_min, self.n_xyz, sdf_delta,
                     generator=self.generator,
-                    lr_scale=float(lr_scales[done + j]))
-                losses.append(loss)
+                    lr_scale=float(lr_scales[done + j]),
+                    error_map=maps[j] if error_guided else None,
+                    pixel_generator=self._pixel_generator)
+                state, loss = out[0], out[1]
+                if error_guided:
+                    self.error_maps[lo + int(fi)] = out[2]
+                group_losses.append(loss)
+            losses.extend(group_losses)
             done += k
+            if stop is not None and k == group and stop.update(group_losses):
+                break
         self.last_optimize_iters = done
         self.optimize_losses = torch.stack(losses).cpu().tolist()
         self.table.features = state.features
         self.table.weights = state.weights
+
+    def make_optim_step(self, lr: float):
+        """The optimize step (``optimize.make_optimize_step``) at ``lr``
+        with this map's geometry and the config's model options."""
+        m = self.config.model
+        return optimize.make_optimize_step(
+            self.params, voxel_size=self.voxel_size,
+            min_pts_in_grid=self.min_pts_in_grid,
+            truncated_units=self.truncated_units,
+            truncated_dist=self.truncated_dist,
+            ray_max_dist=self.ray_max_dist, n_rays=self.sampling_size,
+            train_ray_splits=self.train_ray_splits, lr=lr,
+            compute_dtype=self._model_dtype("optim_dtype"),
+            neighbor_kernel=int(getattr(m, "neighbor_kernel", 3)),
+            error_guided=bool(getattr(m, "error_guided_sampling", False)),
+            decode_layout=str(getattr(m, "decode_layout", "rows")),
+            parallel_chunks=bool(getattr(m, "parallel_ray_chunks", False)),
+            n_fine=int(getattr(m.ray_tracer, "n_fine", 0) or 0),
+            n_coarse=int(getattr(m.ray_tracer, "n_coarse", 0) or 0),
+            grad_scatter=str(getattr(m, "grad_scatter", "sortreduce")))
+
+    def _error_map(self, i: int, depth: torch.Tensor) -> torch.Tensor:
+        """Frame ``i``'s error map, made uniform at its first use."""
+        if i not in self.error_maps:
+            self.error_maps[i] = sampler.create_error_maps(
+                1, tuple(depth.shape),
+                int(getattr(self.config.model, "error_patch", 16)),
+                device=self.device)[0]
+        return self.error_maps[i]
 
     def _optim_lr_scales(self, n_iters: int) -> np.ndarray:
         """Per-iteration lr multipliers (``trainer.optim_lr_schedule``):
@@ -598,10 +685,15 @@ class NeuralMap:
         device, NaN where a corner lacks weight, rounded through
         ``model.mesh_fetch_dtype``.  With ``model.use_fused_decode_kernel``
         on CUDA it runs the fused decode kernel, on the decoder packed once
-        here (the weights are fixed while meshing)."""
+        here (the weights are fixed while meshing); otherwise the plain
+        decode in ``model.mesh_decode_layout`` (null: ``decode_layout``).
+        Both mesh paths decode through this."""
         m = self.config.model
         use_fused = (self.device.type != "cpu" and
                      bool(getattr(m, "use_fused_decode_kernel", False)))
+        # the mesh decode's layout; the fused kernel keeps its own
+        layout = str(getattr(m, "mesh_decode_layout", None)
+                     or getattr(m, "decode_layout", "rows") or "rows")
         fetch_dt = {"float32": torch.float32, "float16": torch.float16,
                     "bfloat16": torch.bfloat16}[
             str(getattr(m, "mesh_fetch_dtype", "float32"))]
@@ -621,7 +713,7 @@ class NeuralMap:
                     self.bound_min, self.voxel_size, self.min_pts_in_grid,
                     sdf_delta=sdf_delta, n_xyz=self.n_xyz, is_coords=True,
                     use_fused_kernel=use_fused, masked_fill=float("nan"),
-                    packed_decoder=packed)
+                    layout=layout, packed_decoder=packed)
             return out.to(fetch_dt).to(torch.float32)
 
         return decode_fn, sdf_delta
@@ -720,7 +812,8 @@ class NeuralMap:
         observation) and run marching tetrahedra on the host.  A valid
         prefetched lattice (``prefetch_mesh_lattice``) is filtered to the
         same gate, through the same ``_mesh_weights``, in place of the
-        in-line build."""
+        in-line build.  Under ``model.fuse_color`` the vertices take their
+        colours from the prior (``tsdf.sample_color``)."""
         m = self.config.model
         if batch_size is None:
             batch_size = self._mesh_decode_batch()
@@ -745,12 +838,19 @@ class NeuralMap:
                 return None
             active = active.astype(np.int32)
         decode, _ = self._mesh_decoder(use_delta)
-        return mesh_mod.extract_mesh(
+        mesh = mesh_mod.extract_mesh(
             lambda batch: decode(batch).cpu().numpy(), active,
             self.bound_min.cpu().numpy(), self.voxel_size,
             batch_size=batch_size, mask_sentinel=True,
             lattice_scale=int(getattr(m, "mesh_lattice_scale", 2)),
             lattice=lattice)
+        if mesh is not None and self.fuse_color and len(mesh.vertices):
+            colors = tsdf.sample_color(
+                self.tsdf_vol, torch.as_tensor(mesh.vertices,
+                                               device=self.device),
+                self.tsdf_voxel_size)
+            mesh = mesh._replace(colors=colors.cpu().numpy())
+        return mesh
 
     def _inc_changed_mask(self):
         """(latent-change mask [n] bool on the host, device snapshot).

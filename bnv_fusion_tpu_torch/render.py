@@ -1,6 +1,6 @@
 """Differentiable SDF rendering along camera rays + the fusion loss.
 
-Counterpart of bnv_fusion_tpu/render.py:21-262.  Randomness is explicit: the
+Counterpart of bnv_fusion_tpu/render.py:21-283.  Randomness is explicit: the
 sampling functions take their uniforms as tensors, drawn by
 ``draw_sampling_uniforms`` from a ``torch.Generator`` (or injected by a test
 from the JAX package's draws).
@@ -13,7 +13,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from bnv_fusion_tpu_torch import fusion, geometry
+from bnv_fusion_tpu_torch import fusion, geometry, voxel
 
 
 class Rays(NamedTuple):
@@ -106,6 +106,21 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     return bins_lo + (u - cdf_lo) / denom * (bins_hi - bins_lo)
 
 
+def _sample_along_rays(rays: Rays, ts, truncated_units: int,
+                       truncated_dist: float, ray_max_dist: float,
+                       n_fine: int, n_coarse: int):
+    """The rays' sample points [N, S, 3] (0 counts keep the reference
+    formula: fine = 2 * truncated_units, coarse = 5 * ray_max_dist) and the
+    camera centre."""
+    ray_dirs, cam_loc = geometry.get_camera_rays(rays.uv, rays.T_wc, rays.intr)
+    gt_depths = torch.linalg.norm(rays.gt_pts - cam_loc[None, :], dim=-1)
+    pts, _ = hierarchical_sampling(
+        n_fine or truncated_units * 2, n_coarse or int(ray_max_dist * 5),
+        gt_depths, rays.gt_pts, ray_dirs, cam_loc,
+        offset_distance=truncated_dist, ts=ts)
+    return pts, cam_loc
+
+
 def prepare_render(table, rays: Rays, bound_min, voxel_size: float,
                    truncated_units: int, truncated_dist: float,
                    ray_max_dist: float, sdf_delta: Optional[torch.Tensor],
@@ -116,12 +131,9 @@ def prepare_render(table, rays: Rays, bound_min, voxel_size: float,
     ``n_fine`` / ``n_coarse`` = 0 keep the reference formula (fine =
     2 * truncated_units, coarse = 5 * ray_max_dist).  Returns (prep, pts,
     cam_loc)."""
-    ray_dirs, cam_loc = geometry.get_camera_rays(rays.uv, rays.T_wc, rays.intr)
-    gt_depths = torch.linalg.norm(rays.gt_pts - cam_loc[None, :], dim=-1)
-    pts, _ = hierarchical_sampling(
-        n_fine or truncated_units * 2, n_coarse or int(ray_max_dist * 5),
-        gt_depths, rays.gt_pts, ray_dirs, cam_loc,
-        offset_distance=truncated_dist, ts=ts)
+    pts, cam_loc = _sample_along_rays(rays, ts, truncated_units,
+                                      truncated_dist, ray_max_dist, n_fine,
+                                      n_coarse)
     n, s = pts.shape[:2]
     prep = fusion.decode_prepare(table, pts.reshape(n * s, 3), bound_min,
                                  voxel_size, sdf_delta=sdf_delta, n_xyz=n_xyz,
@@ -131,9 +143,10 @@ def prepare_render(table, rays: Rays, bound_min, voxel_size: float,
 
 def compute_sdf_loss(rays: Rays, pred_sdf: torch.Tensor,
                      pred_pts: torch.Tensor, cam_loc: torch.Tensor,
-                     truncated_dist: float) -> torch.Tensor:
+                     truncated_dist: float, per_ray: bool = False):
     """Neighbourhood-corrected truncated L1 SDF loss, masked mean over
-    rays."""
+    rays.  ``per_ray`` also returns each ray's summed error [N] (the
+    error-guided sampler's input)."""
     gt_depths = torch.linalg.norm(rays.gt_pts - cam_loc[None, :], dim=-1,
                                   keepdim=True)
     depths = torch.linalg.norm(pred_pts - cam_loc[None, None, :], dim=-1)
@@ -150,15 +163,70 @@ def compute_sdf_loss(rays: Rays, pred_sdf: torch.Tensor,
     num_valid = torch.sum(rays.mask) + 1e-4
     l1 = torch.abs(pred_sdf - gt_nearest_signed) * valid_map
     ray_err = torch.sum(l1, dim=-1) * rays.mask
-    return torch.sum(ray_err) / num_valid
+    loss = torch.sum(ray_err) / num_valid
+    if per_ray:
+        return loss, ray_err
+    return loss
 
 
 def eval_render_loss(gathered_feats: torch.Tensor, prep, params: Dict[str, Any],
                      rays: Rays, pts: torch.Tensor, cam_loc: torch.Tensor,
                      voxel_size: float, min_pts_in_grid: int,
-                     truncated_dist: float) -> torch.Tensor:
-    """Differentiable tail: gathered feature rows -> chunk loss."""
+                     truncated_dist: float,
+                     compute_dtype: torch.dtype = torch.float32,
+                     per_ray: bool = False):
+    """Differentiable tail: gathered feature rows -> chunk loss (with
+    ``per_ray`` as in ``compute_sdf_loss``)."""
     n, s = pts.shape[:2]
     pred = fusion.decode_eval(gathered_feats, prep, params, voxel_size,
-                              min_pts_in_grid).reshape(n, s)
-    return compute_sdf_loss(rays, pred, pts, cam_loc, truncated_dist)
+                              min_pts_in_grid,
+                              compute_dtype=compute_dtype).reshape(n, s)
+    return compute_sdf_loss(rays, pred, pts, cam_loc, truncated_dist,
+                            per_ray=per_ray)
+
+
+def render_rays_sdf(features: torch.Tensor, table, params: Dict[str, Any],
+                    rays: Rays, ts: Tuple[torch.Tensor, torch.Tensor],
+                    bound_min, voxel_size: float, min_pts_in_grid: int,
+                    truncated_units: int, truncated_dist: float,
+                    ray_max_dist: float, sdf_delta: Optional[torch.Tensor],
+                    n_xyz, compute_dtype: torch.dtype = torch.float32,
+                    decode_layout: str = "rows", n_fine: int = 0,
+                    n_coarse: int = 0):
+    """Sample the rays (jitter ``ts``, as in ``prepare_render``) and decode
+    their SDF through ``fusion.decode_points`` in ``decode_layout``.
+    Returns (pred_sdf [N, S], pts [N, S, 3], cam_loc [3], the samples'
+    corner coords [N*S, 8, 3] for the count_optim bump)."""
+    pts, cam_loc = _sample_along_rays(rays, ts, truncated_units,
+                                      truncated_dist, ray_max_dist, n_fine,
+                                      n_coarse)
+    n, s = pts.shape[:2]
+    flat_pts = pts.reshape(n * s, 3)
+    corners = voxel.corner_neighbors(
+        voxel.position_to_coords(flat_pts, bound_min, voxel_size))
+    pred = fusion.decode_points(
+        features, table, params, flat_pts, bound_min, voxel_size,
+        min_pts_in_grid, sdf_delta=sdf_delta, n_xyz=n_xyz,
+        compute_dtype=compute_dtype, layout=decode_layout)
+    return pred.reshape(n, s), pts, cam_loc, corners
+
+
+def calculate_loss(features: torch.Tensor, table, params: Dict[str, Any],
+                   rays: Rays, ts: Tuple[torch.Tensor, torch.Tensor],
+                   bound_min, voxel_size: float, min_pts_in_grid: int,
+                   truncated_units: int, truncated_dist: float,
+                   ray_max_dist: float, sdf_delta: Optional[torch.Tensor],
+                   n_xyz, compute_dtype: torch.dtype = torch.float32,
+                   per_ray: bool = False, decode_layout: str = "rows"):
+    """Loss of one ray chunk and the corner coords to weight-bump; with
+    ``per_ray`` the second value is (corners, per-ray errors)."""
+    pred_sdf, pts, cam_loc, corners = render_rays_sdf(
+        features, table, params, rays, ts, bound_min, voxel_size,
+        min_pts_in_grid, truncated_units, truncated_dist, ray_max_dist,
+        sdf_delta, n_xyz, compute_dtype, decode_layout=decode_layout)
+    if per_ray:
+        loss, ray_err = compute_sdf_loss(rays, pred_sdf, pts, cam_loc,
+                                         truncated_dist, per_ray=True)
+        return loss, (corners, ray_err)
+    return compute_sdf_loss(rays, pred_sdf, pts, cam_loc,
+                            truncated_dist), corners

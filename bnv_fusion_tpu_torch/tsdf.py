@@ -1,18 +1,20 @@
 """Dense TSDF prior volume: classic projective TSDF fusion.
 
-Counterpart of bnv_fusion_tpu/tsdf.py:31-143, :176-235 (the per-frame
+Counterpart of bnv_fusion_tpu/tsdf.py:31-172, :176-235 (the per-frame
 supervision grids the refiner's noisy-depth prior accumulates) and
 :530-617 (dense layout only; the block-major volume is ROADMAP Queue 1
 item 13).  The volume starts at ``-trunc_margin`` (the reference's weak
 negative prior), stores normalized TSDF values (callers rescale by
-``voxel_size * 5``) and looks depth up at the rounded pixel.  ``integrate``
+``voxel_size * 5``) and looks depth up at the rounded pixel.  A volume made
+``with_color`` also keeps a running-mean RGB (0-255 floats) with the sdf's
+weights, which ``sample_color`` reads at mesh vertices.  ``integrate``
 updates the volume IN PLACE.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,28 +27,34 @@ class TSDFVolume:
     sdf: torch.Tensor      # [X, Y, Z] float32, normalized units
     weight: torch.Tensor   # [X, Y, Z] float32
     origin: torch.Tensor   # [3] float32 world position of voxel (0,0,0)
+    color: Optional[torch.Tensor] = None  # [X, Y, Z, 3] float32 RGB mean
 
 
 def create_tsdf_volume(dimensions: np.ndarray, voxel_size: float = 0.025,
-                       device: torch.device | str = "cpu"
+                       device: torch.device | str = "cpu",
+                       with_color: bool = False
                        ) -> Tuple[TSDFVolume, float]:
-    """Build the prior volume over the scene bounds. Returns (volume,
-    trunc_margin)."""
+    """Build the prior volume over the scene bounds (with a zero RGB
+    volume when ``with_color``). Returns (volume, trunc_margin)."""
     min_c, max_c, _ = vx.get_world_range(np.asarray(dimensions), voxel_size)
     vol_dim = tuple(int(v) for v in np.ceil((max_c - min_c) / voxel_size))
     trunc = 5.0 * voxel_size
     vol = TSDFVolume(
         sdf=torch.full(vol_dim, -trunc, dtype=torch.float32, device=device),
         weight=torch.zeros(vol_dim, dtype=torch.float32, device=device),
-        origin=torch.as_tensor(min_c, dtype=torch.float32, device=device))
+        origin=torch.as_tensor(min_c, dtype=torch.float32, device=device),
+        color=(torch.zeros(vol_dim + (3,), dtype=torch.float32, device=device)
+               if with_color else None))
     return vol, trunc
 
 
 def _integrate_into(sdf: torch.Tensor, weight: torch.Tensor,
                     origin: torch.Tensor, depth: torch.Tensor,
                     intr: torch.Tensor, T_wc: torch.Tensor, voxel_size: float,
-                    obs_weight: float) -> None:
-    """The update of one frame on [X, Y, Z] views (written in place)."""
+                    obs_weight: float, color: Optional[torch.Tensor] = None,
+                    rgb: Optional[torch.Tensor] = None) -> None:
+    """The update of one frame on [X, Y, Z] views (written in place); the
+    RGB mean too when both ``color`` and ``rgb`` are given."""
     trunc = 5.0 * voxel_size
     dx, dy, dz = sdf.shape
     dev = sdf.device
@@ -77,16 +85,26 @@ def _integrate_into(sdf: torch.Tensor, weight: torch.Tensor,
     dist = torch.clamp(depth_diff / trunc, max=1.0)
     w_new = weight + obs_weight
     sdf_new = (weight * sdf + obs_weight * dist) / w_new
+    if color is not None and rgb is not None:
+        rgb_val = torch.where(valid[..., None],
+                              rgb.reshape(-1, 3).to(torch.float32)[flat],
+                              torch.zeros((), device=dev))
+        col_new = (weight[..., None] * color + obs_weight * rgb_val) / \
+            w_new[..., None]
+        color.copy_(torch.where(valid[..., None], col_new, color))
     sdf.copy_(torch.where(valid, sdf_new, sdf))
     weight.copy_(torch.where(valid, w_new, weight))
 
 
 def integrate(vol: TSDFVolume, depth: torch.Tensor, intr: torch.Tensor,
               T_wc: torch.Tensor, voxel_size: float,
-              obs_weight: float = 1.0) -> TSDFVolume:
-    """Fuse one depth frame into the whole volume, in place."""
+              obs_weight: float = 1.0,
+              rgb: Optional[torch.Tensor] = None) -> TSDFVolume:
+    """Fuse one depth frame into the whole volume, in place; ``rgb``
+    ([H, W, 3], 0-255) goes into the colour mean of a volume made
+    ``with_color`` (and is ignored by one without)."""
     _integrate_into(vol.sdf, vol.weight, vol.origin, depth, intr, T_wc,
-                    voxel_size, float(obs_weight))
+                    voxel_size, float(obs_weight), vol.color, rgb)
     return vol
 
 
@@ -98,6 +116,36 @@ def prepare_sdf_delta(vol: TSDFVolume, voxel_size: float,
     metric = vol.sdf * (voxel_size * 5.0)
     return torch.clamp(metric, -truncated_dist, truncated_dist) * \
         sdf_delta_weight
+
+
+def sample_color(vol: TSDFVolume, pts_w: torch.Tensor, voxel_size: float
+                 ) -> torch.Tensor:
+    """Trilinear sample of the colour volume at world points [N, 3] ->
+    [N, 3] uint8 (coordinates clipped to the grid, rounded half to
+    even)."""
+    if vol.color is None:
+        raise ValueError("TSDF volume was created without color")
+    dev = vol.color.device
+    c = (pts_w.to(dev) - vol.origin) / voxel_size
+    dims = torch.as_tensor(vol.sdf.shape, dtype=torch.float32, device=dev)
+    c = torch.minimum(torch.clamp(c, min=0.0), dims - 1.0)
+    f = torch.floor(c).long()
+    t = c - f
+    hi = torch.as_tensor([s - 1 for s in vol.sdf.shape], device=dev)
+    f1 = torch.minimum(f + 1, hi)
+    out = torch.zeros(pts_w.shape[:-1] + (3,), dtype=torch.float32,
+                      device=dev)
+    for bx in (0, 1):
+        for by in (0, 1):
+            for bz in (0, 1):
+                ix = f1[..., 0] if bx else f[..., 0]
+                iy = f1[..., 1] if by else f[..., 1]
+                iz = f1[..., 2] if bz else f[..., 2]
+                w = ((t[..., 0] if bx else 1 - t[..., 0]) *
+                     (t[..., 1] if by else 1 - t[..., 1]) *
+                     (t[..., 2] if bz else 1 - t[..., 2]))
+                out = out + w[..., None] * vol.color[ix, iy, iz]
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
 
 def depth_to_tsdf_grid(depth: torch.Tensor, T_wc: torch.Tensor,
@@ -209,8 +257,8 @@ def _frustum_start(vol: TSDFVolume, depth_hw, intr: torch.Tensor,
 def integrate_windowed(vol: TSDFVolume, depth: torch.Tensor,
                        intr: torch.Tensor, T_wc: torch.Tensor,
                        voxel_size: float, window: Tuple[int, int, int],
-                       max_depth: float, obs_weight: float = 1.0
-                       ) -> TSDFVolume:
+                       max_depth: float, obs_weight: float = 1.0,
+                       rgb: Optional[torch.Tensor] = None) -> TSDFVolume:
     """``integrate`` restricted to the frustum window, in place — identical
     results (voxels outside the window cannot receive updates)."""
     s0, s1, s2 = _frustum_start(vol, depth.shape, intr, T_wc, voxel_size,
@@ -220,5 +268,6 @@ def integrate_windowed(vol: TSDFVolume, depth: torch.Tensor,
     origin = vol.origin + torch.as_tensor(
         [s0, s1, s2], dtype=torch.float32, device=vol.sdf.device) * voxel_size
     _integrate_into(vol.sdf[sl], vol.weight[sl], origin, depth, intr, T_wc,
-                    voxel_size, float(obs_weight))
+                    voxel_size, float(obs_weight),
+                    None if vol.color is None else vol.color[sl], rgb)
     return vol

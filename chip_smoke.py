@@ -19,6 +19,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
      a non-empty binary final.ply, the saved map, and one K-batch fused
      through the kernel equal to the same batch through the plain
      seg-reduce (tables compared by voxel key);
+  5a. options: run_e2e at the same point with dataset.load_color,
+     model.fuse_color, trainer.optim_early_stop, model.optim_dtype=bfloat16
+     and model.error_guided_sampling (launch counts zeroed just before, read
+     just after): both kernels launched, no overflow, finite losses, the
+     iterations run at most the ceiling and either it or a multiple of the
+     launch group, one loss per iteration, a non-empty binary final.ply with
+     uchar red/green/blue vertex colours that are not constant; then on the
+     card: early stop at lr=0 and patience 2 stops at 4 groups (one frame,
+     tests/test_optim_schedule.py's case); one optimize step in float32 and
+     in bfloat16 on the same pixels and uniforms within OPTIM_DTYPE_RTOL,
+     the bf16 step against the same step of the plain port on the CPU
+     (loss within OPTIM_CPU_RTOL, first moments as often close as the f32
+     step's, within OPTIM_CPU_MU_SLACK), 16 steps each way timed;
+     decode_points rows, fm and fused on 2^18 points drawn from the final
+     map's mesh lattice (fm within FM_ATOL of rows, the fused decode within
+     DECODE_ATOL, each timed) and extract_mesh with mesh_decode_layout=fm
+     against rows, kernel off (counts within MESH_COUNT_RTOL); sdf_gradient
+     at up to 2^16 final-mesh vertices with the mesh's prior (finite, unit
+     norm within 1e-3 where every corner has weight, and within
+     SDF_GRAD_FD_RTOL of a float64 forward difference of the plain decode
+     on SDF_GRAD_FD_SHARE of the unmasked points);
   5b. demo: run_e2e with model.mode=demo at profiling/bench_demo.py's
      operating point (voxel 0.01, 480x640, 48 frames, uint16 depth staging,
      max_unique_per_frame=116736, optim_interval=16, K=16, fused decode,
@@ -188,9 +209,76 @@ OFFLINE_OVERRIDES = [
     "model.max_unique_per_frame=116736",
     "model.use_fused_decode_kernel=true",
 ]
+# the options run: the online point with every model and trainer option of
+# the dense single-device path that changes what it computes (the decode
+# layouts are held by check_decode_layouts: with the fused mesh decode on,
+# mesh_decode_layout does not apply, as in the JAX package)
+OPTIONS_OVERRIDES = E2E_OVERRIDES + [
+    "dataset.load_color=true", "model.fuse_color=true",
+    "trainer.optim_early_stop=true", "model.optim_dtype=bfloat16",
+    "model.error_guided_sampling=true"]
+# one optimize step's loss, bf16 against f32 operands (relative), and the
+# steps timed each way
+OPTIM_DTYPE_RTOL = 1e-3
+OPTIM_DTYPE_ITERS = 16
+# the card's bf16 step against the same step of the plain port on the CPU:
+# loss (relative; 1.6e-7 measured), and the share of the Adam first
+# moment's nonzero entries within OPTIM_CPU_MU_RTOL relative, which must be
+# within OPTIM_CPU_MU_SLACK of the f32 step's share (the card's scatter
+# sums rows in another order than the CPU's, and a sum that cancels keeps
+# that error: 77.3% f32, 76.2% bf16 measured on the H100; a card decode
+# with products rounded to bf16 or a layer left unrounded gave 36.5% and
+# 41.2%, while its loss moved only 3.3e-7)
+OPTIM_CPU_RTOL = 2e-6
+OPTIM_CPU_MU_RTOL = 1e-3
+OPTIM_CPU_MU_SLACK = 0.05
+# decode_points fm against rows (tests/test_decode_fm.py's tolerance), and
+# the fm mesh's face and vertex counts against the rows mesh's
+FM_ATOL = 2e-5
+MESH_COUNT_RTOL = 1e-3
+SDF_GRAD_POINTS = 1 << 16
+# sdf_gradient against a float64 forward difference of the plain rows
+# decode (step in metres): the share of unmasked points within the relative
+# tolerance (99.53% measured; median 2.2e-5, 99th percentile 1.5e-4)
+SDF_GRAD_FD_STEP = 1e-7
+SDF_GRAD_FD_RTOL = 1e-3
+SDF_GRAD_FD_SHARE = 0.99
 PRETRAIN_OVERRIDES = ["model=fusion_pointnet_model",
                       "dataset=synthetic_patches", "dataset.num_patches=1024",
                       "trainer.max_epochs=1"]
+
+
+def table_on(table, device, features_dtype=None):
+    """A copy of a dense table with its tensors on ``device`` (features in
+    ``features_dtype`` when given)."""
+    import copy
+    import torch
+
+    out = copy.copy(table)
+    for k, v in vars(table).items():
+        if isinstance(v, torch.Tensor):
+            setattr(out, k, v.to(device))
+    if features_dtype is not None:
+        out.features = out.features.to(features_dtype)
+    out.device = torch.device(device)
+    return out
+
+
+def tree_to(tree, **kw):
+    """A nested dict of tensors moved by ``Tensor.to(**kw)``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, **kw) for k, v in tree.items()}
+    return tree.to(**kw)
+
+
+def close_share(got, want, rtol: float) -> float:
+    """Share of the entries nonzero on either side with |got - want| <=
+    rtol * |want| + 1e-6 * max|want|."""
+    import numpy as np
+
+    nz = (got != 0) | (want != 0)
+    ok = np.abs(got - want) <= rtol * np.abs(want) + 1e-6 * np.abs(want).max()
+    return float(ok[nz].mean()) if nz.any() else 1.0
 
 
 def fail(msg: str) -> int:
@@ -1190,6 +1278,395 @@ def phase_fuse(params, card):
         raise AssertionError(f"fuse checks failed: {', '.join(failed)}")
 
 
+def options_run(tmp, params):
+    """run_e2e at OPTIONS_OVERRIDES with the launch counts zeroed just
+    before and read just after; checks the run's outputs.  Returns the
+    run's output dict."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import run_e2e
+    from bnv_fusion_tpu_torch.datasets.synth_scene import procedural_albedo
+    from bnv_fusion_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = run_e2e.run(OPTIONS_OVERRIDES + [f"output_dir={tmp}"], params=params)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    nmap, wd = out["nmap"], out["working_dir"]
+    print(f"  launches in the options run: {launches}", flush=True)
+    for name in ("seg_reduce_sorted", "fused_corner_decode"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"the options run never launched {name}")
+    if nmap.overflow != 0:
+        raise AssertionError(f"options run table overflow {nmap.overflow}")
+    ceiling = out["global_steps"]
+    group = int(nmap.config.model.optim_iters_per_launch)
+    n_it = nmap.last_optimize_iters
+    losses = np.asarray(nmap.optimize_losses, np.float64)
+    if not (n_it <= ceiling and (n_it == ceiling or n_it % group == 0)):
+        raise AssertionError(f"early stop ran {n_it} iterations (ceiling "
+                             f"{ceiling}, group {group})")
+    if len(losses) != n_it or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{len(losses)} optimize losses for {n_it} "
+                             f"iterations, finite {np.isfinite(losses).all()}")
+    head, n_v, n_f = read_ply_header(os.path.join(wd, "final.ply"))
+    if "binary_little_endian" not in head or n_v <= 0 or n_f <= 0 or not all(
+            f"property uchar {c}" in head for c in ("red", "green", "blue")):
+        raise AssertionError(f"final.ply is not a non-empty binary PLY with "
+                             f"uchar colours ({n_v} vertices, {n_f} faces)")
+    final = out["final"]
+    col = final.colors.astype(np.float32)
+    if not col.std() > 10:
+        raise AssertionError(f"vertex colours nearly constant (std "
+                             f"{col.std():.2f})")
+    maps = list(nmap.error_maps.values())
+    shapes = {tuple(m.shape) for m in maps}
+    moved = float(np.mean([(m != 1.0).float().mean().item() for m in maps]))
+    tm = nmap.timer.times
+    print(f"  optimize: {n_it} of {ceiling} iterations (early stop, group "
+          f"{group}), {tm['global'] / max(n_it, 1):.4f} s/iter, loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}", flush=True)
+    print(f"  error maps: {len(maps)} of {len(nmap.frames)} frames, shape "
+          f"{sorted(shapes)}, {moved:.1%} of their patches moved from 1",
+          flush=True)
+    err = np.abs(col - procedural_albedo(final.vertices)).mean()
+    print(f"  final.ply: {n_v} vertices, {n_f} faces, uchar colours (std "
+          f"{col.std():.1f}); mean |colour - procedural_albedo| {err:.1f} "
+          f"(untrained weights, information only)", flush=True)
+    return out
+
+
+def check_early_stop():
+    """tests/test_optim_schedule.py:40-51 on the card: a one-frame map,
+    optimize(64, lr=0) at patience 2 stops at 4 launch groups."""
+    import numpy as np
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.nn import init_model
+    from bnv_fusion_tpu_torch.pipeline import NeuralMap
+
+    cfg = load_config(["model.voxel_size=0.05", "dataset.num_pixels=128",
+                       "model.train_ray_splits=64",
+                       "model.table_capacity=16384", "model.min_pts_in_grid=1",
+                       "trainer.optim_early_stop=true",
+                       "trainer.optim_es_patience=2"])
+    rng = np.random.RandomState(7)
+    h, w = 48, 64
+    T_wc = np.eye(4, dtype=np.float32)
+    T_wc[:3, 3] = [0, 0, -1.2]
+    frame = {"depth": (1.0 + 0.3 * rng.rand(h, w)).astype(np.float32),
+             "T_wc": T_wc, "frame_id": 0,
+             "intr_mat": np.array([[60.0, 0, w / 2], [0, 60.0, h / 2],
+                                   [0, 0, 1]], np.float32)}
+    nm = NeuralMap(np.array([2.0, 2.0, 2.0], np.float32), cfg,
+                   init_model(0, bias_std=BIAS_STD))
+    nm.integrate(frame)
+    nm.optimize(64, lr=0.0)
+    group = int(cfg.model.optim_iters_per_launch)
+    if nm.last_optimize_iters != 4 * group or \
+            len(nm.optimize_losses) != 4 * group:
+        raise AssertionError(f"lr=0, patience 2: stopped at "
+                             f"{nm.last_optimize_iters}, not {4 * group}")
+    print(f"  early stop at lr=0, patience 2: {nm.last_optimize_iters} "
+          f"iterations of 64 (4 groups of {group})", flush=True)
+
+
+def check_optim_dtype(nmap):
+    """One optimize step in float32 and in bfloat16 on the same injected
+    pixel ids and uniforms: losses within OPTIM_DTYPE_RTOL; each step held
+    against the same step of the plain port on the CPU (bf16: loss within
+    OPTIM_CPU_RTOL, first moments as often close as f32's, within
+    OPTIM_CPU_MU_SLACK); then 16 steps each way timed (information)."""
+    import torch
+    from bnv_fusion_tpu_torch import optimize, render, tsdf
+
+    # the plain (uniform-ray) step, so both dtypes draw the same pixels;
+    # the CPU steps are built from a CPU copy of the weights
+    m = nmap.config.model
+    keep = (m.optim_dtype, m.error_guided_sampling, nmap.params)
+    cpu = torch.device("cpu")
+    steps, cpu_steps = {}, {}
+    try:
+        m.error_guided_sampling = False
+        for dt in ("float32", "bfloat16"):
+            m.optim_dtype = dt
+            nmap.params = keep[2]
+            steps[dt] = nmap.make_optim_step(1e-3)
+            nmap.params = tree_to(keep[2], device=cpu)
+            cpu_steps[dt] = nmap.make_optim_step(1e-3)
+    finally:
+        m.optim_dtype, m.error_guided_sampling, nmap.params = keep
+    g = torch.Generator().manual_seed(3)
+    f = nmap.frames[len(nmap.frames) // 2]
+    h, w = f["depth"].shape
+    ids = torch.randperm(h * w, generator=g)[:nmap.sampling_size]
+    nf = nmap.truncated_units * 2
+    nc = int(nmap.ray_max_dist * 5)
+    uni = [render.draw_sampling_uniforms(g, nmap.train_ray_splits, nf, nc,
+                                         nmap.device)
+           for _ in range(nmap.sampling_size // nmap.train_ray_splits)]
+    sdf_delta = tsdf.prepare_sdf_delta(nmap.tsdf_vol, nmap.tsdf_voxel_size,
+                                       nmap.truncated_dist,
+                                       nmap.sdf_delta_weight)
+    loss, mu = {}, {}
+    for dt, step in steps.items():
+        st = optimize.init_optim_state(nmap.table)
+        loss[dt] = float(step(st, nmap.table, f["depth"], f["T_wc"],
+                              f["intr"], nmap.bound_min, nmap.n_xyz,
+                              sdf_delta, pixel_ids=ids, uniforms=uni)[1])
+        mu[dt] = st.mu.cpu().numpy()
+        del st
+    rel = abs(loss["bfloat16"] - loss["float32"]) / abs(loss["float32"])
+    if not rel <= OPTIM_DTYPE_RTOL or loss["bfloat16"] == loss["float32"]:
+        raise AssertionError(f"one optimize step: bf16 loss "
+                             f"{loss['bfloat16']} vs f32 {loss['float32']} "
+                             f"(rel {rel:.2e})")
+    ctable = table_on(nmap.table, cpu)
+    cargs = (ctable, f["depth"].cpu(), f["T_wc"].cpu(), f["intr"].cpu(),
+             nmap.bound_min.cpu(), nmap.n_xyz, sdf_delta.cpu())
+    cuni = [tuple(u.cpu() for u in us) for us in uni]
+    on_cpu = {}
+    for dt, step in cpu_steps.items():
+        st = optimize.init_optim_state(ctable)
+        t0 = time.time()
+        c_loss = float(step(st, *cargs, pixel_ids=ids.cpu(),
+                            uniforms=cuni)[1])
+        on_cpu[dt] = (abs(loss[dt] - c_loss) / abs(c_loss),
+                      close_share(mu[dt], st.mu.numpy(), OPTIM_CPU_MU_RTOL),
+                      time.time() - t0)
+        del st
+    del ctable, mu
+    print("  optim step, card against the plain port on the CPU: "
+          + "; ".join(f"{dt} loss rel {r:.2e}, first moment within "
+                      f"{OPTIM_CPU_MU_RTOL} on {sh:.2%} ({sec:.1f} s on the "
+                      f"CPU)" for dt, (r, sh, sec) in on_cpu.items()),
+          flush=True)
+    r, sh, _ = on_cpu["bfloat16"]
+    floor = on_cpu["float32"][1] - OPTIM_CPU_MU_SLACK
+    if not (r <= OPTIM_CPU_RTOL and sh >= floor):
+        raise AssertionError(f"bf16 step on the card vs the CPU: loss rel "
+                             f"{r:.2e} (tol {OPTIM_CPU_RTOL}), moments close "
+                             f"{sh:.2%} (at least {floor:.2%})")
+    secs = {}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        st = optimize.init_optim_state(nmap.table)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(OPTIM_DTYPE_ITERS // 2):
+            fr = nmap.frames[(7 * i) % len(nmap.frames)]
+            steps[dt](st, nmap.table, fr["depth"], fr["T_wc"], fr["intr"],
+                      nmap.bound_min, nmap.n_xyz, sdf_delta,
+                      generator=nmap.generator)
+        torch.cuda.synchronize()
+        secs[dt] = secs.get(dt, 0.0) + time.time() - t0
+    print(f"  optim_dtype: one step's loss f32 {loss['float32']:.6f}, bf16 "
+          f"{loss['bfloat16']:.6f} (rel {rel:.2e}, tolerance "
+          f"{OPTIM_DTYPE_RTOL}); {OPTIM_DTYPE_ITERS} steps each way (f32, "
+          f"bf16, bf16, f32 halves): f32 "
+          f"{secs['float32'] / OPTIM_DTYPE_ITERS:.4f} s/iter, bf16 "
+          f"{secs['bfloat16'] / OPTIM_DTYPE_ITERS:.4f} s/iter (information;"
+          f" operands rounded, products in f32)", flush=True)
+
+
+def check_decode_layouts(nmap):
+    """decode_points rows-plain, fm-plain and fused on 2^18 points drawn
+    from the final map's mesh lattice: fm within FM_ATOL of rows, the
+    fused decode within DECODE_ATOL, each timed; then extract_mesh with
+    mesh_decode_layout=fm and the kernel off against rows: face and vertex
+    counts within MESH_COUNT_RTOL."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import fusion, mesh as mesh_mod, tables as tbl
+    from bnv_fusion_tpu_torch import tsdf
+    from bnv_fusion_tpu_torch.kernels import _build
+    from bnv_fusion_tpu_torch.kernels.fused_decode import pack_decoder_tc
+
+    keys, _, weights, hits, _ = tbl.active_entries(nmap.table,
+                                                   with_features=False)
+    active = keys[nmap._mesh_weights(weights, hits) >= nmap.min_pts_in_grid]
+    scale = int(nmap.config.model.mesh_lattice_scale)
+    points = mesh_mod.build_sample_lattice(active.astype(np.int32), scale)[0]
+    # a seeded sample over the whole lattice, in voxel coordinates (the
+    # lattice's integer points are in units of voxel / scale)
+    sel = np.random.RandomState(0).choice(
+        len(points), min(DEC_ROWS // 8, len(points)), replace=False)
+    pts = torch.as_tensor(points[np.sort(sel)].astype(np.float32) / scale,
+                          device=nmap.device)
+    delta = tsdf.prepare_sdf_delta(nmap.tsdf_vol, nmap.tsdf_voxel_size,
+                                   nmap.truncated_dist, nmap.sdf_delta_weight)
+    packed = pack_decoder_tc(nmap.params["decoder"])
+
+    def dec(layout, fused):
+        with torch.no_grad():
+            return fusion.decode_points(
+                nmap.table.features, nmap.table, nmap.params, pts,
+                nmap.bound_min, nmap.voxel_size, nmap.min_pts_in_grid,
+                sdf_delta=delta, n_xyz=nmap.n_xyz, is_coords=True,
+                use_fused_kernel=fused, masked_fill=float("nan"),
+                layout=layout, packed_decoder=packed if fused else None)
+
+    rows, fm, fused = dec("rows", False), dec("fm", False), dec("rows", True)
+    live = torch.isfinite(rows)
+    if not bool(live.any()):
+        raise AssertionError("no unmasked point among the decoded lattice")
+    if not (torch.equal(live, torch.isfinite(fm)) and
+            torch.equal(live, torch.isfinite(fused))):
+        raise AssertionError("the three decodes mask different points")
+    e_fm = float((fm - rows)[live].abs().max())
+    e_fused = float((fused - rows)[live].abs().max())
+    if not (e_fm <= FM_ATOL and e_fused <= DECODE_ATOL):
+        raise AssertionError(f"decode layouts: fm vs rows {e_fm:.3e} (tol "
+                             f"{FM_ATOL}), fused vs rows {e_fused:.3e} (tol "
+                             f"{DECODE_ATOL})")
+    ms = {k: median_ms(lambda: dec(*a)) for k, a in (
+        ("rows", ("rows", False)), ("fm", ("fm", False)),
+        ("fused", ("rows", True)))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dec("fm", False)
+    torch.cuda.synchronize()
+    peak_fm = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  decode of {pts.shape[0]} lattice points ({int(live.sum())} "
+          f"unmasked): rows {ms['rows']:.3f} ms, fm {ms['fm']:.3f} ms (peak "
+          f"{peak_fm:.2f} GiB), fused {ms['fused']:.3f} ms; max abs diff to "
+          f"rows: fm {e_fm:.2e}, fused {e_fused:.2e}", flush=True)
+
+    m = nmap.config.model
+    keep = (m.use_fused_decode_kernel, m.mesh_decode_layout)
+    meshes, secs = {}, {}
+    try:
+        m.use_fused_decode_kernel = False
+        for layout in ("fm", "rows"):
+            m.mesh_decode_layout = layout
+            _build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            meshes[layout] = nmap.extract_mesh()
+            secs[layout] = time.time() - t0
+            if _build.LAUNCHES["fused_corner_decode"]:
+                raise AssertionError("the plain mesh decode launched the "
+                                     "kernel")
+    finally:
+        m.use_fused_decode_kernel, m.mesh_decode_layout = keep
+    counts = {k: (len(v.faces), len(v.vertices)) for k, v in meshes.items()}
+    for i, what in ((0, "faces"), (1, "vertices")):
+        a, b = counts["fm"][i], counts["rows"][i]
+        if not abs(a - b) <= MESH_COUNT_RTOL * b:
+            raise AssertionError(f"mesh_decode_layout=fm: {a} {what} vs "
+                                 f"rows {b}")
+    print(f"  extract_mesh, kernel off: mesh_decode_layout=fm "
+          f"{counts['fm'][0]} faces / {counts['fm'][1]} vertices in "
+          f"{secs['fm']:.3f} s, rows {counts['rows'][0]} / "
+          f"{counts['rows'][1]} in {secs['rows']:.3f} s", flush=True)
+
+
+def check_sdf_gradient(nmap, final):
+    """fusion.sdf_gradient at up to 2^16 final-mesh vertices, with the
+    mesh's prior: finite, unit norm within 1e-3 where every corner has
+    weight; unnormalized, within SDF_GRAD_FD_RTOL of a float64 forward
+    difference of the plain rows decode on SDF_GRAD_FD_SHARE of the unmasked
+    points; the share aligned with the mesh's area-weighted vertex normals
+    is printed."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import fusion, tsdf
+
+    v = final.vertices[:SDF_GRAD_POINTS]
+    pts = torch.as_tensor(v, device=nmap.device)
+    delta = tsdf.prepare_sdf_delta(nmap.tsdf_vol, nmap.tsdf_voxel_size,
+                                   nmap.truncated_dist, nmap.sdf_delta_weight)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    g = fusion.sdf_gradient(nmap.table.features, nmap.table, nmap.params,
+                            pts, nmap.bound_min, nmap.voxel_size,
+                            nmap.min_pts_in_grid, sdf_delta=delta,
+                            n_xyz=nmap.n_xyz)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    prep = fusion.decode_prepare(nmap.table, pts, nmap.bound_min,
+                                 nmap.voxel_size)
+    live = (torch.amin(prep.w, dim=-1) >= nmap.min_pts_in_grid).cpu().numpy()
+    g = g.cpu().numpy()
+    if not np.isfinite(g).all():
+        raise AssertionError("sdf_gradient: non-finite gradients")
+    norm = np.linalg.norm(g[live], axis=-1)
+    if not (live.any() and np.abs(norm - 1.0).max() <= 1e-3):
+        raise AssertionError(f"sdf_gradient: {int(live.sum())} unmasked, "
+                             f"norms {norm.min() if live.any() else 0:.4f}-"
+                             f"{norm.max() if live.any() else 0:.4f}")
+    # against a float64 forward difference of the plain rows decode, at the
+    # vertices moved by 1e-3 voxel along (1, 1, 1): the lattice puts many
+    # vertices on a cell face, where the gradient is one-sided and the side
+    # follows the rounding of the coordinate, which differs between float32
+    # and float64
+    q = pts + 1e-3 * nmap.voxel_size
+    gq = fusion.sdf_gradient(nmap.table.features, nmap.table, nmap.params,
+                             q, nmap.bound_min, nmap.voxel_size,
+                             nmap.min_pts_in_grid, normalize=False,
+                             sdf_delta=delta, n_xyz=nmap.n_xyz)
+    t64 = table_on(nmap.table, nmap.device, torch.float64)
+    p64 = tree_to(nmap.params, dtype=torch.float64)
+
+    def sdf64(x):
+        with torch.no_grad():
+            return fusion.decode_points(
+                t64.features, t64, p64, x, nmap.bound_min.double(),
+                nmap.voxel_size, nmap.min_pts_in_grid,
+                sdf_delta=delta.double(), n_xyz=nmap.n_xyz,
+                masked_fill=float("nan"))
+
+    q64 = q.double()
+    s0 = sdf64(q64)
+    fd = torch.empty_like(q64)
+    for k in range(3):
+        qk = q64.clone()
+        qk[:, k] += SDF_GRAD_FD_STEP
+        fd[:, k] = (sdf64(qk) - s0) / (qk[:, k] - q64[:, k])
+    del t64
+    fd = fd.cpu().numpy()
+    gq = gq.double().cpu().numpy()
+    ok = np.isfinite(fd).all(-1)
+    err = (np.linalg.norm(gq[ok] - fd[ok], axis=-1)
+           / np.maximum(np.linalg.norm(fd[ok], axis=-1), 1e-12))
+    share = float((err <= SDF_GRAD_FD_RTOL).mean()) if ok.any() else 0.0
+    q50, q99 = (np.quantile(err, [0.5, 0.99]) if ok.any() else (0, 0))
+    print(f"  sdf_gradient vs a float64 forward difference (step "
+          f"{SDF_GRAD_FD_STEP} m) at {int(ok.sum())} unmasked points: "
+          f"relative error median {q50:.1e}, 99th percentile {q99:.1e}, "
+          f"within {SDF_GRAD_FD_RTOL} at {share:.2%}", flush=True)
+    if not share >= SDF_GRAD_FD_SHARE:
+        raise AssertionError(f"sdf_gradient vs the forward difference: "
+                             f"{share:.2%} within {SDF_GRAD_FD_RTOL} (at "
+                             f"least {SDF_GRAD_FD_SHARE:.0%})")
+    # area-weighted vertex normals of the final mesh
+    f = final.faces
+    fn = np.cross(final.vertices[f[:, 1]] - final.vertices[f[:, 0]],
+                  final.vertices[f[:, 2]] - final.vertices[f[:, 0]])
+    vn = np.zeros_like(final.vertices)
+    for k in range(3):
+        np.add.at(vn, f[:, k], fn)
+    vn = vn[:len(v)]
+    vn /= np.maximum(np.linalg.norm(vn, axis=-1, keepdims=True), 1e-12)
+    cos = np.abs(np.sum(vn * g, axis=-1))
+    print(f"  sdf_gradient at {len(v)} final-mesh vertices in {secs:.3f} s: "
+          f"finite, {int(live.sum())} unmasked with unit norm (max dev "
+          f"{np.abs(norm - 1.0).max():.1e}); |cos| > 0.9 to the mesh's "
+          f"vertex normal at {(cos[live] > 0.9).mean():.1%} of them "
+          f"(information)", flush=True)
+
+
+def phase_options(tmp, params):
+    """The model and trainer options of the dense path: the options run,
+    then the early-stop, optim_dtype, decode-layout and sdf_gradient
+    checks on the card."""
+    out = options_run(tmp, params)
+    nmap = out["nmap"]
+    check_early_stop()
+    check_optim_dtype(nmap)
+    check_decode_layouts(nmap)
+    check_sdf_gradient(nmap, out["final"])
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bnv_fusion_tpu_torch")):
         return fail("bnv_fusion_tpu_torch/ not found beside chip_smoke.py; "
@@ -1280,6 +1757,12 @@ def main() -> int:
         print(f"phase e2e: {time.time() - t0:.1f} s (reference and "
               "prefetch checks included)", flush=True)
         del out, nmap
+
+        print("phase options: run_e2e with the model and trainer options",
+              flush=True)
+        t0 = time.time()
+        phase_options(os.path.join(tmp, "options"), params)
+        print(f"phase options: {time.time() - t0:.1f} s", flush=True)
 
         print("phase demo: run_e2e model.mode=demo at bench_demo's point",
               flush=True)

@@ -184,19 +184,73 @@ def test_cuda_device_type_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("model.optim_dtype=bfloat16", 9), ("model.fuse_color=true", 6),
-    ("model.error_guided_sampling=true", 12),
-    ("trainer.optim_early_stop=true", 9), ("model.decode_layout=fm", 8),
-    ("model.mesh_decode_layout=fm", 8), ("trainer.fuse_devices=2", 14),
-    ("trainer.optimize_devices=2", 14),
-    ("model.tsdf_layout=blocks", 13),
-    ("model.table_layout=spatial", 14)])
+    ("trainer.fuse_devices=2", 14), ("trainer.optimize_devices=2", 14),
+    ("model.tsdf_layout=blocks", 13), ("model.table_layout=spatial", 14)])
 def test_unsupported_options_raise(override, item):
     cfg = tload_config(OVERRIDES + ["device_type=cpu", override])
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1 item {item}\)"):
         TNeuralMap(np.array([2.6, 2.6, 1.6], np.float32), cfg,
                    run_e2e.load_params(cfg))
+
+
+# the model and trainer options of the dense single-device path, each alone
+# and all together (with the fused decode off, so mesh_decode_layout=fm is
+# the layout the mesh takes on the card too)
+OPTIONS = {
+    "optim_dtype": ["model.optim_dtype=bfloat16"],
+    "fuse_color": ["model.fuse_color=true", "dataset.load_color=true"],
+    "error_guided_sampling": ["model.error_guided_sampling=true"],
+    "optim_early_stop": ["trainer.optim_early_stop=true",
+                         "trainer.optim_es_patience=1",
+                         "trainer.global_steps=12"],
+    "decode_layout": ["model.decode_layout=fm"],
+    "mesh_decode_layout": ["model.mesh_decode_layout=fm"],
+}
+OPTIONS["all"] = [o for v in OPTIONS.values() for o in v]
+
+
+@pytest.mark.parametrize("name", list(OPTIONS))
+def test_run_e2e_with_option(name, tmp_path):
+    """run_e2e on the CPU with each ported option: finite losses and
+    latents, non-empty PLYs (coloured under fuse_color), the error maps
+    and early-stop count where they apply."""
+    out = run_e2e.run(OVERRIDES + OPTIONS[name] + [
+        "device_type=cpu", "model.use_fused_decode_kernel=false",
+        "model.mesh_decode_batch=16384", f"output_dir={tmp_path}"])
+    nm, wd = out["nmap"], out["working_dir"]
+    assert np.all(np.isfinite(nm.optimize_losses))
+    assert len(nm.optimize_losses) == nm.last_optimize_iters > 0
+    assert torch.isfinite(nm.table.features).all()
+    for ply in ("before_optim.ply", "final.ply"):
+        m = tmesh.load_ply(os.path.join(wd, ply))
+        assert len(m.vertices) > 0 and len(m.faces) > 0
+        assert np.all(np.isfinite(m.vertices))
+        assert (m.colors is not None) == ("model.fuse_color=true"
+                                          in OPTIONS[name])
+    if "model.error_guided_sampling=true" in OPTIONS[name]:
+        assert nm.error_maps and all(tuple(v.shape) == (3, 5)
+                                     for v in nm.error_maps.values())
+    if "trainer.optim_early_stop=true" in OPTIONS[name]:
+        assert nm.last_optimize_iters <= 12 and \
+            nm.last_optimize_iters % 4 == 0
+
+
+def test_fuse_color_frame_with_only_an_img_path_raises(tmp_path):
+    """The port reads no image files yet: a fuse_color frame whose colour
+    is only a readable img_path names the dataset readers' item."""
+    cfg = tload_config(OVERRIDES + ["device_type=cpu", "model.fuse_color=true"])
+    frame = dict(SyntheticDemoDataset(jload_config(OVERRIDES), "val")[0])
+    frame.pop("rgb", None)
+    img = tmp_path / "frame.png"
+    img.write_bytes(b"\x89PNG\r\n")
+    frame["img_path"] = str(img)
+    nm = TNeuralMap(np.array([2.6, 2.6, 1.6], np.float32), cfg,
+                    run_e2e.load_params(cfg))
+    for fuse in (nm.integrate, lambda f: nm.integrate_batch([f, f])):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP Queue 1 item 12\)"):
+            fuse(frame)
 
 
 def test_port_runs_without_jax():
@@ -252,6 +306,28 @@ slots, ok = tables.insert(corner, t([[1, 2, 3], [1, 2, 3]]),
                           t([True, True]))
 assert bool(ok.all()) and int(slots[0]) == int(slots[1])
 assert len(mesh.cell_owner_voxel(np.zeros((2, 3), np.int64))) == 2
+# the model and trainer options: optimize and mesh with all six on
+from bnv_fusion_tpu_torch.pipeline import NeuralMap
+ocfg = load_config(["device_type=cpu", "dataset.img_res=[30,40]",
+                    "dataset.num_images=2", "dataset.load_color=true",
+                    "model.voxel_size=0.08", "model.min_pts_in_grid=0",
+                    "model.table_capacity=16384", "dataset.num_pixels=64",
+                    "model.train_ray_splits=32", "model.fuse_color=true",
+                    "model.optim_dtype=bfloat16",
+                    "model.error_guided_sampling=true",
+                    "trainer.optim_early_stop=true",
+                    "model.decode_layout=fm", "model.mesh_decode_layout=fm"])
+ods = get_dataset(ocfg, "val")
+onm = NeuralMap(ods.dimensions, ocfg, nn.init_model(0))
+onm.integrate_batch([ods[0], ods[1]])
+onm.optimize(8)
+assert onm.error_maps and len(onm.optimize_losses) == onm.last_optimize_iters
+om = onm.extract_mesh()
+assert om is None or om.colors.shape == om.vertices.shape
+g = fusion.sdf_gradient(onm.table.features, onm.table, onm.params,
+                        t([[0.0, 0.0, 0.0]]), onm.bound_min, 0.08, 0,
+                        layout="fm")
+assert g.shape == (1, 3)
 assert not any(m.split(".")[0] in blocked for m in sys.modules)
 print("ok")
 """
