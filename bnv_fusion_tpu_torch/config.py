@@ -365,3 +365,8 @@ def load_config(overrides: Optional[List[str]] = None,
             break
         cfg = new_cfg
     return ConfigNode.wrap(cfg)
+
+
+def config_from_dict(data: Dict[str, Any]) -> ConfigNode:
+    """A config tree from a plain dict (deep-copied), no yaml involved."""
+    return ConfigNode.wrap(copy.deepcopy(data))

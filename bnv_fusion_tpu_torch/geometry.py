@@ -2,14 +2,22 @@
 
 Counterpart of bnv_fusion_tpu/geometry.py:19-217 on torch tensors.  Every
 function keeps the input's device; shapes are those of the JAX package.
-``DepthNoiseSimulator`` (geometry.py:148-175) is host numpy, copied as is so
-that one seed gives the same noisy depth in both packages.
+The host numpy helpers (``depth_to_xyz_np``, the AABB measures,
+``DepthNoiseSimulator`` and ``load_K_Rt_from_P``, geometry.py:34-192) are
+copied as they are, so that one seed gives the same noisy depth in both
+packages; ``load_K_Rt_from_P`` takes scipy's RQ in place of
+``cv2.decomposeProjectionMatrix``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def get_homogeneous(pts: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 4] with a trailing 1."""
+    return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -20,6 +28,17 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 def rotate_vectors(T: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     """Apply only the rotation part of a [4,4] transform to [..., 3] vectors."""
     return vec @ T[:3, :3].T
+
+
+def depth_to_xyz_np(depth: np.ndarray, intr: np.ndarray) -> np.ndarray:
+    """Host twin of ``depth_to_xyz`` (dataset preprocessing): float32
+    [H, W, 3]."""
+    h, w = depth.shape
+    uu, vv = np.meshgrid(np.arange(w, dtype=np.float32),
+                         np.arange(h, dtype=np.float32))
+    x = (uu - intr[0, 2]) / intr[0, 0] * depth
+    y = (vv - intr[1, 2]) / intr[1, 1] * depth
+    return np.stack([x, y, depth], axis=-1).astype(np.float32)
 
 
 def depth_to_xyz(depth: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
@@ -98,6 +117,103 @@ def gather_pixel_neighborhoods(xyz_map: torch.Tensor, mask: torch.Tensor,
     u = torch.clamp(uv[:, None, 0] + du[None, :], 0, w - 1)
     v = torch.clamp(uv[:, None, 1] + dv[None, :], 0, h - 1)
     return xyz_map[v, u], mask[v, u]
+
+
+def aabb_intersection(a: np.ndarray, b: np.ndarray) -> float:
+    """Intersection volume of two AABBs given as [2, 3] (min, max) rows."""
+    lo = np.maximum(a[0], b[0])
+    hi = np.minimum(a[1], b[1])
+    return float(np.prod(np.maximum(hi - lo, 0.0)))
+
+
+def aabb_volume(a: np.ndarray) -> float:
+    return float(np.prod(np.maximum(a[1] - a[0], 0.0)))
+
+
+def aabb_iou(a: np.ndarray, b: np.ndarray) -> float:
+    inter = aabb_intersection(a, b)
+    union = aabb_volume(a) + aabb_volume(b) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def aabb_giou(a: np.ndarray, b: np.ndarray) -> float:
+    """Generalized IoU of two AABBs."""
+    inter = aabb_intersection(a, b)
+    union = aabb_volume(a) + aabb_volume(b) - inter
+    hull = np.stack([np.minimum(a[0], b[0]), np.maximum(a[1], b[1])])
+    hull_vol = aabb_volume(hull)
+    iou = inter / union if union > 0 else 0.0
+    return iou - (hull_vol - union) / hull_vol if hull_vol > 0 else iou
+
+
+def _rq3(M: np.ndarray):
+    """cv2.RQDecomp3x3 (calib3d): M = R @ Q by Givens rotations about x,
+    y and z, then cv2's fix of the decomposition's sign ambiguity, step for
+    step (including its transposes), so that the port takes the signs cv2
+    takes."""
+    M = np.asarray(M, np.float64)
+    eps = np.finfo(np.float64).eps
+
+    def givens(c, s):
+        z = 1.0 / np.sqrt(c * c + s * s + eps)
+        return c * z, s * z
+
+    c, s = givens(M[2, 2], M[2, 1])
+    Qx = np.array([[1, 0, 0], [0, c, s], [0, -s, c]])
+    R = M @ Qx
+    R[2, 1] = 0
+    c, s = givens(R[2, 2], -R[2, 0])
+    Qy = np.array([[c, 0, -s], [0, 1, 0], [s, 0, c]])
+    M2 = R @ Qy
+    M2[2, 0] = 0
+    c, s = givens(M2[1, 1], M2[1, 0])
+    Qz = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]])
+    R = M2 @ Qz
+    R[1, 0] = 0
+    if R[0, 0] < 0:
+        if R[1, 1] < 0:   # rotate about z by 180 degrees
+            R[0, 0] *= -1
+            R[0, 1] *= -1
+            R[1, 1] *= -1
+            Qz[:2, :2] *= -1
+        else:             # rotate about y by 180 degrees
+            R[0, 0] *= -1
+            R[0, 2] *= -1
+            R[1, 2] *= -1
+            R[2, 2] *= -1
+            Qz = Qz.T
+            Qy[0, 0] *= -1
+            Qy[0, 2] *= -1
+            Qy[2, 0] *= -1
+            Qy[2, 2] *= -1
+    elif R[1, 1] < 0:     # rotate about x by 180 degrees
+        R[0, 1] *= -1
+        R[0, 2] *= -1
+        R[1, 1] *= -1
+        R[1, 2] *= -1
+        R[2, 2] *= -1
+        Qz = Qz.T
+        Qy = Qy.T
+        Qx[1:, 1:] *= -1
+    Q = Qz.T @ Qy.T @ Qx.T
+    return R, Q
+
+
+def load_K_Rt_from_P(P: np.ndarray):
+    """Decompose a 3x4 projection matrix into intrinsics [4, 4] and a
+    camera-to-world pose [4, 4] (the IDR helper the reference vendors),
+    as the JAX package does through ``cv2.decomposeProjectionMatrix``."""
+    P = np.asarray(P, np.float64)
+    K, R = _rq3(P[:, :3])
+    # camera centre: the right null vector of P (cv2 takes it from an SVD)
+    t = np.linalg.svd(P)[2][-1]
+    K = K / K[2, 2]
+    intrinsics = np.eye(4)
+    intrinsics[:3, :3] = K
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = R.transpose()
+    pose[:3, 3] = t[:3] / t[3]
+    return intrinsics.astype(np.float32), pose
 
 
 class DepthNoiseSimulator:

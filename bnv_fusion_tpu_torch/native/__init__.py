@@ -1,9 +1,11 @@
-"""Native (C++) host mesher, loaded via ctypes.
+"""Native (C++) host code, loaded via ctypes.
 
-Counterpart of bnv_fusion_tpu/native/__init__.py:22-179: ``mesh_ops.cpp`` (a
-copy of the JAX package's source) is built with the system ``c++`` into
-``bnv_fusion_tpu_torch/_build/libmesh_ops.so`` at first use.  A failed build
-raises; callers that want the numpy path pass ``use_native=False``.
+``mesh_ops.cpp`` is the host mesher, a copy of the JAX package's source
+(bnv_fusion_tpu/native/__init__.py:22-179); ``image_ops.cpp`` is the image
+codec behind ``utils.image_io`` (the JAX package uses cv2).  Each is built
+with the system ``c++`` into ``bnv_fusion_tpu_torch/_build/lib<name>.so`` at
+first use.  A failed build raises; mesh callers that want the numpy path
+pass ``use_native=False``, the codec has none.
 """
 
 from __future__ import annotations
@@ -12,23 +14,24 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict
 
 import numpy as np
 
 _LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS: Dict[str, ctypes.CDLL] = {}
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
 
-def _build_and_load() -> ctypes.CDLL:
-    global _LIB
+def load_library(name: str) -> ctypes.CDLL:
+    """``lib<name>.so`` built from ``<name>.cpp`` (rebuilt when the source
+    is newer), loaded once per process."""
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        src = os.path.join(_HERE, "mesh_ops.cpp")
-        lib_path = os.path.join(_BUILD_DIR, "libmesh_ops.so")
+        if name in _LIBS:
+            return _LIBS[name]
+        src = os.path.join(_HERE, f"{name}.cpp")
+        lib_path = os.path.join(_BUILD_DIR, f"lib{name}.so")
         if (not os.path.exists(lib_path) or
                 os.path.getmtime(lib_path) < os.path.getmtime(src)):
             os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -37,26 +40,31 @@ def _build_and_load() -> ctypes.CDLL:
                                   "-std=c++17", src, "-o", tmp],
                                  capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError(f"building mesh_ops.cpp failed:\n"
+                raise RuntimeError(f"building {name}.cpp failed:\n"
                                    f"{res.stdout}{res.stderr}")
             os.replace(tmp, lib_path)
         lib = ctypes.CDLL(lib_path)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        f32p = ctypes.POINTER(ctypes.c_float)
-        lib.mesh_ops_marching_tets_indexed.restype = ctypes.c_int64
-        lib.mesh_ops_marching_tets_indexed.argtypes = [
-            i64p, i64p, f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-            ctypes.c_double]
-        lib.mesh_ops_num_vertices.restype = ctypes.c_int64
-        lib.mesh_ops_get.argtypes = [f32p, ctypes.POINTER(ctypes.c_int32)]
-        lib.mesh_ops_get_face_cells.argtypes = [i64p]
-        lib.mesh_ops_build_lattice.restype = ctypes.c_int64
-        lib.mesh_ops_build_lattice.argtypes = [i64p, ctypes.c_int64,
-                                               ctypes.c_int]
-        lib.mesh_ops_lattice_num_points.restype = ctypes.c_int64
-        lib.mesh_ops_lattice_get.argtypes = [i64p, i64p, i64p]
-        _LIB = lib
-        return _LIB
+        _LIBS[name] = lib
+        return lib
+
+
+def _build_and_load() -> ctypes.CDLL:
+    lib = load_library("mesh_ops")
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.mesh_ops_marching_tets_indexed.restype = ctypes.c_int64
+    lib.mesh_ops_marching_tets_indexed.argtypes = [
+        i64p, i64p, f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+        ctypes.c_double]
+    lib.mesh_ops_num_vertices.restype = ctypes.c_int64
+    lib.mesh_ops_get.argtypes = [f32p, ctypes.POINTER(ctypes.c_int32)]
+    lib.mesh_ops_get_face_cells.argtypes = [i64p]
+    lib.mesh_ops_build_lattice.restype = ctypes.c_int64
+    lib.mesh_ops_build_lattice.argtypes = [i64p, ctypes.c_int64,
+                                           ctypes.c_int]
+    lib.mesh_ops_lattice_num_points.restype = ctypes.c_int64
+    lib.mesh_ops_lattice_get.argtypes = [i64p, i64p, i64p]
+    return lib
 
 
 def marching_tetrahedra_indexed_native(cells: np.ndarray,

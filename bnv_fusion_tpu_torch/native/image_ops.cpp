@@ -1,0 +1,1309 @@
+// Native image codec: PNG row filters, baseline/extended sequential JPEG
+// decoding and baseline JPEG encoding.
+//
+// The JAX package reads and writes every image through cv2 (libpng and
+// libjpeg(-turbo)); the port has neither, so this file rebuilds the parts it
+// needs.  The arithmetic follows libjpeg where cv2's results depend on it:
+//   * jidctint.c  jpeg_idct_islow        (the decoder's default IDCT)
+//   * jdsample.c  h2v1/h2v2/h1v2 "fancy" triangular chroma upsampling
+//   * jdcolor.c   fixed-point YCbCr -> RGB tables
+//   * jfdctint.c  jpeg_fdct_islow, jcsample.c h2v2_downsample, jccolor.c
+//     RGB -> YCbCr and jcparam.c quality scaling (the encoder's defaults)
+// PNG inflation stays in Python (zlib); only the five row filters are here,
+// since Paeth and Average run sequentially along a row.  cv2's INTER_AREA
+// resize at fractional ratios (imgproc/resize.cpp computeResizeAreaTab and
+// ResizeArea_Invoker) is here too, its float32 sums in cv2's order.
+//
+// Exposed via a plain C ABI for ctypes.  Errors return a negative code; the
+// message is read with image_ops_error().  Return codes: -1 malformed or
+// unsupported input, -2 progressive JPEG, -3 arithmetic-coded JPEG.
+//
+// Build: c++ -O3 -shared -fPIC -std=c++17 image_ops.cpp -o libimage_ops.so
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+thread_local std::string g_error;
+thread_local std::vector<uint8_t> g_encoded;
+
+struct CodecError {
+  int code;
+  std::string msg;
+};
+
+[[noreturn]] void fail(const std::string& msg, int code = -1) {
+  throw CodecError{code, msg};
+}
+
+// ---------------------------------------------------------------------------
+// PNG
+// ---------------------------------------------------------------------------
+
+inline uint8_t paeth(int a, int b, int c) {
+  int p = a + b - c;
+  int pa = p > a ? p - a : a - p;
+  int pb = p > b ? p - b : b - p;
+  int pc = p > c ? p - c : c - p;
+  if (pa <= pb && pa <= pc) return (uint8_t)a;
+  if (pb <= pc) return (uint8_t)b;
+  return (uint8_t)c;
+}
+
+// ---------------------------------------------------------------------------
+// JPEG tables
+// ---------------------------------------------------------------------------
+
+const int kZigzag[64 + 16] = {  // natural index of the k-th coefficient
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    // extra entries absorb a corrupt run past the end of the block
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// jdmaster.c prepare_range_limit_table, post-IDCT part: index (x & 1023)
+// gives clamp(x + 128) for |x| < 512 (and libjpeg's wrap beyond).
+struct RangeLimit {
+  uint8_t idct[1024];
+  RangeLimit() {
+    for (int y = 0; y < 1024; y++) {
+      int v;
+      if (y < 128) v = y + 128;
+      else if (y < 512) v = 255;
+      else if (y < 896) v = 0;
+      else v = y - 896;
+      idct[y] = (uint8_t)v;
+    }
+  }
+};
+const RangeLimit kRange;
+
+inline uint8_t clamp255(int v) {
+  return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// ---------------------------------------------------------------------------
+// jidctint.c: slow-but-accurate integer IDCT
+// ---------------------------------------------------------------------------
+
+constexpr int CONST_BITS = 13;
+constexpr int PASS1_BITS = 2;
+constexpr int64_t FIX_0_298631336 = 2446;
+constexpr int64_t FIX_0_390180644 = 3196;
+constexpr int64_t FIX_0_541196100 = 4433;
+constexpr int64_t FIX_0_765366865 = 6270;
+constexpr int64_t FIX_0_899976223 = 7373;
+constexpr int64_t FIX_1_175875602 = 9633;
+constexpr int64_t FIX_1_501321110 = 12299;
+constexpr int64_t FIX_1_847759065 = 15137;
+constexpr int64_t FIX_1_961570560 = 16069;
+constexpr int64_t FIX_2_053119869 = 16819;
+constexpr int64_t FIX_2_562915447 = 20995;
+constexpr int64_t FIX_3_072711026 = 25172;
+
+inline int64_t descale(int64_t x, int n) {
+  return (x + ((int64_t)1 << (n - 1))) >> n;
+}
+
+// coef: dequantized coefficients in natural order; out: 8x8 samples with
+// row stride `stride`.
+void idct_islow(const int32_t* coef, uint8_t* out, int64_t stride) {
+  int32_t ws[64];
+  for (int c = 0; c < 8; c++) {
+    const int32_t* in = coef + c;
+    if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[32] == 0 &&
+        in[40] == 0 && in[48] == 0 && in[56] == 0) {
+      int32_t dc = in[0] * (1 << PASS1_BITS);
+      for (int r = 0; r < 8; r++) ws[r * 8 + c] = dc;
+      continue;
+    }
+    int64_t z2 = in[16], z3 = in[48];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * (-FIX_1_847759065);
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = in[0];
+    z3 = in[32];
+    int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
+    int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+
+    tmp0 = in[56];
+    tmp1 = in[40];
+    tmp2 = in[24];
+    tmp3 = in[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = CONST_BITS - PASS1_BITS;
+    ws[0 * 8 + c] = (int32_t)descale(tmp10 + tmp3, sh);
+    ws[7 * 8 + c] = (int32_t)descale(tmp10 - tmp3, sh);
+    ws[1 * 8 + c] = (int32_t)descale(tmp11 + tmp2, sh);
+    ws[6 * 8 + c] = (int32_t)descale(tmp11 - tmp2, sh);
+    ws[2 * 8 + c] = (int32_t)descale(tmp12 + tmp1, sh);
+    ws[5 * 8 + c] = (int32_t)descale(tmp12 - tmp1, sh);
+    ws[3 * 8 + c] = (int32_t)descale(tmp13 + tmp0, sh);
+    ws[4 * 8 + c] = (int32_t)descale(tmp13 - tmp0, sh);
+  }
+  for (int r = 0; r < 8; r++) {
+    const int32_t* w = ws + r * 8;
+    uint8_t* o = out + r * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
+        w[6] == 0 && w[7] == 0) {
+      uint8_t dc = kRange.idct[(int)descale(w[0], PASS1_BITS + 3) & 1023];
+      for (int c = 0; c < 8; c++) o[c] = dc;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * (-FIX_1_847759065);
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << CONST_BITS);
+    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << CONST_BITS);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+
+    tmp0 = w[7];
+    tmp1 = w[5];
+    tmp2 = w[3];
+    tmp3 = w[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = CONST_BITS + PASS1_BITS + 3;
+    o[0] = kRange.idct[(int)descale(tmp10 + tmp3, sh) & 1023];
+    o[7] = kRange.idct[(int)descale(tmp10 - tmp3, sh) & 1023];
+    o[1] = kRange.idct[(int)descale(tmp11 + tmp2, sh) & 1023];
+    o[6] = kRange.idct[(int)descale(tmp11 - tmp2, sh) & 1023];
+    o[2] = kRange.idct[(int)descale(tmp12 + tmp1, sh) & 1023];
+    o[5] = kRange.idct[(int)descale(tmp12 - tmp1, sh) & 1023];
+    o[3] = kRange.idct[(int)descale(tmp13 + tmp0, sh) & 1023];
+    o[4] = kRange.idct[(int)descale(tmp13 - tmp0, sh) & 1023];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// JPEG decoding
+// ---------------------------------------------------------------------------
+
+constexpr int kLookBits = 9;
+
+struct HuffTable {
+  bool present = false;
+  uint8_t bits[17] = {0};
+  uint8_t vals[256] = {0};
+  int32_t maxcode[18];
+  int32_t valoff[17];
+  uint16_t look[1 << kLookBits];  // (length << 8) | value, 0 = slow path
+
+  void derive() {
+    int32_t huffcode[257];
+    uint8_t huffsize[257];
+    int p = 0;
+    for (int l = 1; l <= 16; l++)
+      for (int i = 0; i < bits[l]; i++) {
+        if (p >= 256) fail("bad Huffman table");
+        huffsize[p++] = (uint8_t)l;
+      }
+    huffsize[p] = 0;
+    int32_t code = 0;
+    int si = huffsize[0];
+    p = 0;
+    while (huffsize[p]) {
+      while (huffsize[p] == si) huffcode[p++] = code++;
+      if (code >= (1 << si)) fail("bad Huffman table");
+      code <<= 1;
+      si++;
+    }
+    p = 0;
+    for (int l = 1; l <= 16; l++) {
+      if (bits[l]) {
+        valoff[l] = p - huffcode[p];
+        p += bits[l];
+        maxcode[l] = huffcode[p - 1];
+      } else {
+        maxcode[l] = -1;
+      }
+    }
+    maxcode[17] = 0x7fffffff;
+    std::memset(look, 0, sizeof(look));
+    p = 0;
+    for (int l = 1; l <= kLookBits; l++)
+      for (int i = 0; i < bits[l]; i++, p++) {
+        int lookbits = huffcode[p] << (kLookBits - l);
+        for (int c = 0; c < (1 << (kLookBits - l)); c++)
+          look[lookbits + c] = (uint16_t)((l << 8) | vals[p]);
+      }
+    present = true;
+  }
+};
+
+struct BitReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t acc = 0;
+  int nbits = 0;
+  bool at_marker = false;
+
+  void fill() {
+    while (nbits <= 56) {
+      uint32_t b = 0;
+      if (!at_marker && p < end) {
+        b = *p;
+        if (b == 0xFF) {
+          uint32_t nx = (p + 1 < end) ? p[1] : 0xD9;
+          if (nx == 0x00) {
+            p += 2;
+          } else {
+            at_marker = true;  // feed zeros past a marker, as libjpeg does
+            b = 0;
+          }
+        } else {
+          p++;
+        }
+      }
+      acc |= (uint64_t)b << (56 - nbits);
+      nbits += 8;
+    }
+  }
+  inline uint32_t peek(int n) {
+    if (nbits < n) fill();
+    return (uint32_t)(acc >> (64 - n));
+  }
+  inline void skip(int n) {
+    acc <<= n;
+    nbits -= n;
+  }
+  inline int32_t receive(int s) {
+    if (s == 0) return 0;
+    uint32_t v = peek(s);
+    skip(s);
+    // F.2.2.1 EXTEND
+    if (v < (1u << (s - 1))) return (int32_t)v - (1 << s) + 1;
+    return (int32_t)v;
+  }
+  inline int decode(const HuffTable& h) {
+    uint32_t look = peek(kLookBits);
+    uint16_t e = h.look[look];
+    if (e) {
+      skip(e >> 8);
+      return e & 0xFF;
+    }
+    uint32_t code = peek(16);
+    int l = kLookBits + 1;
+    while (l <= 16 && (int32_t)(code >> (16 - l)) > h.maxcode[l]) l++;
+    if (l > 16) fail("corrupt Huffman code");
+    skip(l);
+    return h.vals[(code >> (16 - l)) + h.valoff[l]];
+  }
+  // Drop the bit buffer and step over the next RSTn marker.
+  void restart() {
+    acc = 0;
+    nbits = 0;
+    at_marker = false;
+    while (p + 1 < end) {
+      if (p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF) {
+        if (p[1] >= 0xD0 && p[1] <= 0xD7) p += 2;
+        return;
+      }
+      p++;
+    }
+  }
+};
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int td = 0, ta = 0;
+  int64_t cw = 0, ch = 0;       // downsampled size
+  int64_t pw = 0, ph = 0;       // plane size (whole MCUs)
+  int32_t dc_pred = 0;
+  std::vector<uint8_t> plane;
+};
+
+struct JpegDecoder {
+  const uint8_t* data;
+  int64_t n;
+  int64_t pos = 0;
+  int width = 0, height = 0, ncomp = 0;
+  int hmax = 1, vmax = 1;
+  int64_t mcux = 0, mcuy = 0;
+  int restart_interval = 0;
+  bool have_frame = false, saw_jfif = false, saw_adobe = false;
+  int adobe_transform = -1;
+  int32_t qt[4][64];
+  bool qt_present[4] = {false, false, false, false};
+  HuffTable dc[4], ac[4];
+  Component comp[4];
+
+  JpegDecoder(const uint8_t* d, int64_t len) : data(d), n(len) {}
+
+  int u8() {
+    if (pos >= n) fail("truncated JPEG");
+    return data[pos++];
+  }
+  int u16() {
+    int a = u8();
+    return (a << 8) | u8();
+  }
+
+  int next_marker() {
+    // skip to 0xFF, past fill bytes, and over stuffed 0xFF00 pairs left
+    // at the end of an entropy-coded segment
+    for (;;) {
+      while (pos < n && data[pos] != 0xFF) pos++;
+      while (pos < n && data[pos] == 0xFF) pos++;
+      if (pos >= n) fail("truncated JPEG (no EOI)");
+      int m = data[pos++];
+      if (m != 0x00) return m;
+    }
+  }
+
+  void read_sof(bool alloc) {
+    if (have_frame) fail("more than one frame in the JPEG");
+    int len = u16();
+    int64_t stop = pos + len - 2;
+    int precision = u8();
+    if (precision != 8)
+      fail("JPEG sample precision " + std::to_string(precision) +
+           " bits (only 8 is supported)");
+    height = u16();
+    width = u16();
+    ncomp = u8();
+    if (height == 0) fail("JPEG with a DNL-defined height is not supported");
+    if (width == 0) fail("JPEG width 0");
+    if (ncomp != 1 && ncomp != 3)
+      fail("JPEG with " + std::to_string(ncomp) +
+           " components (only 1 and 3 are supported)");
+    for (int i = 0; i < ncomp; i++) {
+      Component& c = comp[i];
+      c.id = u8();
+      int hv = u8();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = u8();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+        fail("bad JPEG component parameters");
+      if (c.h > hmax) hmax = c.h;
+      if (c.v > vmax) vmax = c.v;
+    }
+    if (pos != stop) fail("bad SOF length");
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (int i = 0; i < ncomp; i++) {
+      Component& c = comp[i];
+      c.cw = ((int64_t)width * c.h + hmax - 1) / hmax;
+      c.ch = ((int64_t)height * c.v + vmax - 1) / vmax;
+      c.pw = mcux * c.h * 8;
+      c.ph = mcuy * c.v * 8;
+      if (alloc) c.plane.assign((size_t)(c.pw * c.ph), 0);
+    }
+    have_frame = true;
+  }
+
+  void read_dqt() {
+    int len = u16();
+    int64_t stop = pos + len - 2;
+    while (pos < stop) {
+      int pq_tq = u8();
+      int pq = pq_tq >> 4, tq = pq_tq & 15;
+      if (tq > 3 || pq > 1) fail("bad DQT");
+      for (int k = 0; k < 64; k++)
+        qt[tq][kZigzag[k]] = pq ? u16() : u8();
+      qt_present[tq] = true;
+    }
+    if (pos != stop) fail("bad DQT length");
+  }
+
+  void read_dht() {
+    int len = u16();
+    int64_t stop = pos + len - 2;
+    while (pos < stop) {
+      int tc_th = u8();
+      int tc = tc_th >> 4, th = tc_th & 15;
+      if (tc > 1 || th > 3) fail("bad DHT");
+      HuffTable& t = tc ? ac[th] : dc[th];
+      int total = 0;
+      t.bits[0] = 0;
+      for (int l = 1; l <= 16; l++) {
+        t.bits[l] = (uint8_t)u8();
+        total += t.bits[l];
+      }
+      if (total > 256) fail("bad DHT");
+      for (int i = 0; i < total; i++) t.vals[i] = (uint8_t)u8();
+      t.derive();
+    }
+    if (pos != stop) fail("bad DHT length");
+  }
+
+  void read_app(int marker) {
+    int64_t len = u16();
+    int64_t start = pos;
+    if (marker == 0xE0 && len >= 7 && pos + 5 <= n &&
+        std::memcmp(data + pos, "JFIF\0", 5) == 0)
+      saw_jfif = true;
+    if (marker == 0xEE && len >= 14 && pos + 12 <= n &&
+        std::memcmp(data + pos, "Adobe", 5) == 0) {
+      saw_adobe = true;
+      adobe_transform = data[pos + 11];
+    }
+    pos = start + len - 2;
+  }
+
+  void decode_block(BitReader& br, Component& c, int64_t bx, int64_t by) {
+    int32_t coef[64];
+    std::memset(coef, 0, sizeof(coef));
+    const HuffTable& hd = dc[c.td];
+    const HuffTable& ha = ac[c.ta];
+    int t = br.decode(hd);
+    if (t > 16) fail("corrupt DC coefficient");
+    c.dc_pred += br.receive(t);
+    const int32_t* q = qt[c.tq];
+    coef[0] = c.dc_pred * q[0];
+    for (int k = 1; k < 64;) {
+      int rs = br.decode(ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        int nat = kZigzag[k];
+        coef[nat] = br.receive(s) * q[nat];
+        k++;
+      } else {
+        if (r != 15) break;
+        k += 16;
+      }
+    }
+    idct_islow(coef, c.plane.data() + by * 8 * c.pw + bx * 8, c.pw);
+  }
+
+  void read_sos() {
+    if (!have_frame) fail("SOS before SOF");
+    int len = u16();
+    int ns = u8();
+    if (ns < 1 || ns > 4 || len != 6 + 2 * ns) fail("bad SOS");
+    Component* sc[4];
+    for (int i = 0; i < ns; i++) {
+      int cid = u8(), tdta = u8();
+      sc[i] = nullptr;
+      for (int j = 0; j < ncomp; j++)
+        if (comp[j].id == cid) sc[i] = &comp[j];
+      if (!sc[i]) fail("SOS names an unknown component");
+      sc[i]->td = tdta >> 4;
+      sc[i]->ta = tdta & 15;
+      if (sc[i]->td > 3 || sc[i]->ta > 3 || !dc[sc[i]->td].present ||
+          !ac[sc[i]->ta].present)
+        fail("SOS uses a missing Huffman table");
+      if (!qt_present[sc[i]->tq]) fail("component uses a missing DQT table");
+      sc[i]->dc_pred = 0;
+    }
+    int ss = u8(), se = u8(), ahal = u8();
+    if (ss != 0 || se != 63 || ahal != 0) fail("bad sequential scan");
+
+    BitReader br{data + pos, data + n};
+    int64_t todo = restart_interval;
+    auto maybe_restart = [&](bool last) {
+      if (!restart_interval || last) return;
+      if (--todo == 0) {
+        br.restart();
+        for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+        todo = restart_interval;
+      }
+    };
+    if (ns == 1) {
+      Component& c = *sc[0];
+      int64_t bw = (c.cw + 7) / 8, bh = (c.ch + 7) / 8;
+      for (int64_t by = 0; by < bh; by++)
+        for (int64_t bx = 0; bx < bw; bx++) {
+          decode_block(br, c, bx, by);
+          maybe_restart(by == bh - 1 && bx == bw - 1);
+        }
+    } else {
+      for (int64_t my = 0; my < mcuy; my++)
+        for (int64_t mx = 0; mx < mcux; mx++) {
+          for (int i = 0; i < ns; i++) {
+            Component& c = *sc[i];
+            for (int yy = 0; yy < c.v; yy++)
+              for (int xx = 0; xx < c.h; xx++)
+                decode_block(br, c, mx * c.h + xx, my * c.v + yy);
+          }
+          maybe_restart(my == mcuy - 1 && mx == mcux - 1);
+        }
+    }
+    pos = br.p - data;  // the next marker search starts here
+  }
+
+  void parse() {
+    if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG file");
+    pos = 2;
+    for (;;) {
+      int m = next_marker();
+      if (m == 0xD9) break;                       // EOI
+      if (m >= 0xD0 && m <= 0xD7) continue;       // stray RSTn
+      if (m == 0x01) continue;                    // TEM
+      switch (m) {
+        case 0xC0: case 0xC1: read_sof(true); break;
+        case 0xC2: case 0xC6: case 0xCA: case 0xCE:
+          fail("progressive JPEG is not supported", -2);
+        case 0xC9: case 0xCB: case 0xCD: case 0xCC: case 0xCF:
+          fail("arithmetic-coded JPEG is not supported", -3);
+        case 0xC3: case 0xC5: case 0xC7:
+          fail("lossless or hierarchical JPEG is not supported");
+        case 0xC4: read_dht(); break;
+        case 0xDB: read_dqt(); break;
+        case 0xDD:
+          if (u16() != 4) fail("bad DRI");
+          restart_interval = u16();
+          break;
+        case 0xDA: read_sos(); break;
+        default:
+          if (m >= 0xE0 && m <= 0xEF) read_app(m);
+          else if (m == 0xFE || m == 0xDC || m == 0xDE || m == 0xDF)
+            pos += u16() - 2;
+          else
+            fail("unknown JPEG marker");
+      }
+    }
+    if (!have_frame) fail("JPEG without a frame");
+  }
+
+  // Full-resolution plane of component c (width x height), libjpeg's
+  // upsampling: fancy (triangular) for h2v1, h2v2 and h1v2, box otherwise.
+  std::vector<uint8_t> upsample(const Component& c) const {
+    std::vector<uint8_t> out((size_t)width * height);
+    const int fx = hmax / c.h, fy = vmax / c.v;
+    if (hmax % c.h || vmax % c.v) fail("unsupported JPEG sampling factors");
+    const uint8_t* pl = c.plane.data();
+    const int64_t pw = c.pw, cw = c.cw, ch = c.ch;
+    auto in_row = [&](int64_t r) {
+      if (r < 0) r = 0;
+      if (r > ch - 1) r = ch - 1;
+      return pl + r * pw;
+    };
+    std::vector<uint8_t> row((size_t)(2 * cw + 2));
+    if (fx == 1 && fy == 1) {
+      for (int64_t y = 0; y < height; y++)
+        std::memcpy(&out[y * width], pl + y * pw, width);
+    } else if (fx == 2 && fy == 1 && cw > 2) {
+      for (int64_t y = 0; y < height; y++) {
+        const uint8_t* in = pl + y * pw;
+        uint8_t* o = row.data();
+        int iv = in[0];
+        *o++ = (uint8_t)iv;
+        *o++ = (uint8_t)((iv * 3 + in[1] + 2) >> 2);
+        for (int64_t x = 1; x < cw - 1; x++) {
+          iv = in[x] * 3;
+          *o++ = (uint8_t)((iv + in[x - 1] + 1) >> 2);
+          *o++ = (uint8_t)((iv + in[x + 1] + 2) >> 2);
+        }
+        iv = in[cw - 1];
+        *o++ = (uint8_t)((iv * 3 + in[cw - 2] + 1) >> 2);
+        *o++ = (uint8_t)iv;
+        std::memcpy(&out[y * width], row.data(), width);
+      }
+    } else if (fx == 2 && fy == 2 && cw > 2) {
+      for (int64_t y = 0; y < height; y++) {
+        int64_t r = y >> 1;
+        const uint8_t* in0 = in_row(r);
+        const uint8_t* in1 = in_row((y & 1) ? r + 1 : r - 1);
+        uint8_t* o = row.data();
+        int thiscol = in0[0] * 3 + in1[0];
+        int nextcol = in0[1] * 3 + in1[1];
+        *o++ = (uint8_t)((thiscol * 4 + 8) >> 4);
+        *o++ = (uint8_t)((thiscol * 3 + nextcol + 7) >> 4);
+        int lastcol = thiscol;
+        thiscol = nextcol;
+        for (int64_t x = 2; x < cw; x++) {
+          nextcol = in0[x] * 3 + in1[x];
+          *o++ = (uint8_t)((thiscol * 3 + lastcol + 8) >> 4);
+          *o++ = (uint8_t)((thiscol * 3 + nextcol + 7) >> 4);
+          lastcol = thiscol;
+          thiscol = nextcol;
+        }
+        *o++ = (uint8_t)((thiscol * 3 + lastcol + 8) >> 4);
+        *o++ = (uint8_t)((thiscol * 4 + 7) >> 4);
+        std::memcpy(&out[y * width], row.data(), width);
+      }
+    } else if (fx == 1 && fy == 2) {
+      for (int64_t y = 0; y < height; y++) {
+        int64_t r = y >> 1;
+        const uint8_t* in0 = in_row(r);
+        const uint8_t* in1 = in_row((y & 1) ? r + 1 : r - 1);
+        int bias = (y & 1) ? 2 : 1;
+        for (int64_t x = 0; x < width; x++)
+          out[y * width + x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
+      }
+    } else {
+      for (int64_t y = 0; y < height; y++) {
+        const uint8_t* in = pl + (y / fy) * pw;
+        for (int64_t x = 0; x < width; x++) out[y * width + x] = in[x / fx];
+      }
+    }
+    return out;
+  }
+
+  void to_rgb(uint8_t* out) const {
+    const int64_t npx = (int64_t)width * height;
+    if (ncomp == 1) {
+      const Component& c = comp[0];
+      for (int64_t y = 0; y < height; y++)
+        for (int64_t x = 0; x < width; x++) {
+          uint8_t g = c.plane[y * c.pw + x];
+          uint8_t* o = out + 3 * (y * width + x);
+          o[0] = o[1] = o[2] = g;
+        }
+      return;
+    }
+    std::vector<uint8_t> p0 = upsample(comp[0]);
+    std::vector<uint8_t> p1 = upsample(comp[1]);
+    std::vector<uint8_t> p2 = upsample(comp[2]);
+    bool rgb;
+    if (saw_jfif) rgb = false;
+    else if (saw_adobe) rgb = adobe_transform == 0;
+    else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+    if (rgb) {
+      for (int64_t i = 0; i < npx; i++) {
+        out[3 * i] = p0[i];
+        out[3 * i + 1] = p1[i];
+        out[3 * i + 2] = p2[i];
+      }
+      return;
+    }
+    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+    constexpr int SB = 16;
+    constexpr int64_t HALF = (int64_t)1 << (SB - 1);
+    auto fix = [](double x) { return (int64_t)(x * (1L << SB) + 0.5); };
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    for (int i = 0, x = -128; i < 256; i++, x++) {
+      cr_r[i] = (int)((fix(1.40200) * x + HALF) >> SB);
+      cb_b[i] = (int)((fix(1.77200) * x + HALF) >> SB);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + HALF;
+    }
+    for (int64_t i = 0; i < npx; i++) {
+      int y = p0[i], cb = p1[i], cr = p2[i];
+      out[3 * i] = clamp255(y + cr_r[cr]);
+      out[3 * i + 1] = clamp255(y + (int)((cb_g[cb] + cr_g[cr]) >> SB));
+      out[3 * i + 2] = clamp255(y + cb_b[cb]);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// JPEG encoding (libjpeg's defaults: 4:2:0, islow DCT, Annex K tables)
+// ---------------------------------------------------------------------------
+
+const int kStdLuma[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const int kStdChroma[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kDcLumaBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+struct EncTable {
+  uint16_t code[256];
+  uint8_t size[256];
+  EncTable(const uint8_t* bits, const uint8_t* vals) {
+    std::memset(size, 0, sizeof(size));
+    int p = 0;
+    uint16_t c = 0;
+    for (int l = 1; l <= 16; l++) {
+      for (int i = 0; i < bits[l]; i++, p++) {
+        code[vals[p]] = c++;
+        size[vals[p]] = (uint8_t)l;
+      }
+      c <<= 1;
+    }
+  }
+};
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint32_t acc = 0;
+  int nbits = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void put(uint32_t bits, int n) {
+    acc = (acc << n) | (bits & ((1u << n) - 1));
+    nbits += n;
+    while (nbits >= 8) {
+      uint8_t b = (uint8_t)(acc >> (nbits - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+      nbits -= 8;
+    }
+  }
+  void flush() {
+    if (nbits > 0) put(0x7F, 7);  // pad with ones
+    nbits = 0;
+  }
+};
+
+// jfdctint.c jpeg_fdct_islow (output scaled up by 8)
+void fdct_islow(int32_t* d) {
+  for (int r = 0; r < 8; r++) {
+    int32_t* p = d + r * 8;
+    int64_t tmp0 = p[0] + p[7], tmp7 = p[0] - p[7];
+    int64_t tmp1 = p[1] + p[6], tmp6 = p[1] - p[6];
+    int64_t tmp2 = p[2] + p[5], tmp5 = p[2] - p[5];
+    int64_t tmp3 = p[3] + p[4], tmp4 = p[3] - p[4];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (int32_t)((tmp10 + tmp11) * (1 << PASS1_BITS));
+    p[4] = (int32_t)((tmp10 - tmp11) * (1 << PASS1_BITS));
+    int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[2] = (int32_t)descale(z1 + tmp13 * FIX_0_765366865, CONST_BITS - PASS1_BITS);
+    p[6] = (int32_t)descale(z1 + tmp12 * (-FIX_1_847759065), CONST_BITS - PASS1_BITS);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[7] = (int32_t)descale(tmp4 + z1 + z3, CONST_BITS - PASS1_BITS);
+    p[5] = (int32_t)descale(tmp5 + z2 + z4, CONST_BITS - PASS1_BITS);
+    p[3] = (int32_t)descale(tmp6 + z2 + z3, CONST_BITS - PASS1_BITS);
+    p[1] = (int32_t)descale(tmp7 + z1 + z4, CONST_BITS - PASS1_BITS);
+  }
+  for (int c = 0; c < 8; c++) {
+    int32_t* p = d + c;
+    int64_t tmp0 = p[0] + p[56], tmp7 = p[0] - p[56];
+    int64_t tmp1 = p[8] + p[48], tmp6 = p[8] - p[48];
+    int64_t tmp2 = p[16] + p[40], tmp5 = p[16] - p[40];
+    int64_t tmp3 = p[24] + p[32], tmp4 = p[24] - p[32];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (int32_t)descale(tmp10 + tmp11, PASS1_BITS);
+    p[32] = (int32_t)descale(tmp10 - tmp11, PASS1_BITS);
+    int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[16] = (int32_t)descale(z1 + tmp13 * FIX_0_765366865, CONST_BITS + PASS1_BITS);
+    p[48] = (int32_t)descale(z1 + tmp12 * (-FIX_1_847759065), CONST_BITS + PASS1_BITS);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[56] = (int32_t)descale(tmp4 + z1 + z3, CONST_BITS + PASS1_BITS);
+    p[40] = (int32_t)descale(tmp5 + z2 + z4, CONST_BITS + PASS1_BITS);
+    p[24] = (int32_t)descale(tmp6 + z2 + z3, CONST_BITS + PASS1_BITS);
+    p[8] = (int32_t)descale(tmp7 + z1 + z4, CONST_BITS + PASS1_BITS);
+  }
+}
+
+void scale_quant(const int* base, int quality, int* out) {
+  if (quality <= 0) quality = 1;
+  if (quality > 100) quality = 100;
+  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; i++) {
+    long t = ((long)base[i] * scale + 50L) / 100L;
+    if (t <= 0) t = 1;
+    if (t > 255) t = 255;  // force_baseline
+    out[i] = (int)t;
+  }
+}
+
+void put_u16(std::vector<uint8_t>& o, int v) {
+  o.push_back((uint8_t)(v >> 8));
+  o.push_back((uint8_t)(v & 0xFF));
+}
+
+void write_dht(std::vector<uint8_t>& o, int tc_th, const uint8_t* bits,
+               const uint8_t* vals) {
+  int total = 0;
+  for (int l = 1; l <= 16; l++) total += bits[l];
+  o.push_back(0xFF);
+  o.push_back(0xC4);
+  put_u16(o, 2 + 1 + 16 + total);
+  o.push_back((uint8_t)tc_th);
+  for (int l = 1; l <= 16; l++) o.push_back(bits[l]);
+  for (int i = 0; i < total; i++) o.push_back(vals[i]);
+}
+
+inline int nbits_of(int v) {
+  if (v < 0) v = -v;
+  int n = 0;
+  while (v) {
+    n++;
+    v >>= 1;
+  }
+  return n;
+}
+
+// Forward DCT and quantization of one block (jcdctmgr.c, islow divisors
+// q << 3); zz receives the coefficients in zigzag order.
+void quantize_block(int32_t* blk, const int* q, int32_t* zz) {
+  fdct_islow(blk);
+  for (int k = 0; k < 64; k++) {
+    int nat = kZigzag[k];
+    int32_t qval = q[nat] << 3;
+    int32_t t = blk[nat];
+    if (t < 0) {
+      t = -t + (qval >> 1);
+      t = t >= qval ? -(t / qval) : 0;
+    } else {
+      t += qval >> 1;
+      t = t >= qval ? t / qval : 0;
+    }
+    zz[k] = t;
+  }
+}
+
+void emit_block(BitWriter& bw, const int32_t* zz, int& pred,
+                const EncTable& dct, const EncTable& act) {
+  int diff = zz[0] - pred;
+  pred = zz[0];
+  int s = nbits_of(diff);
+  bw.put(dct.code[s], dct.size[s]);
+  if (s) bw.put((uint32_t)(diff < 0 ? diff - 1 : diff), s);
+  int run = 0;
+  for (int k = 1; k < 64; k++) {
+    int v = zz[k];
+    if (v == 0) {
+      run++;
+      continue;
+    }
+    while (run > 15) {
+      bw.put(act.code[0xF0], act.size[0xF0]);
+      run -= 16;
+    }
+    s = nbits_of(v);
+    int rs = (run << 4) | s;
+    bw.put(act.code[rs], act.size[rs]);
+    bw.put((uint32_t)(v < 0 ? v - 1 : v), s);
+    run = 0;
+  }
+  if (run > 0) bw.put(act.code[0], act.size[0]);
+}
+
+// Edge-replicated copy of src [h, w] into [ph, pw].
+std::vector<uint8_t> pad_plane(const std::vector<uint8_t>& src, int64_t w,
+                               int64_t h, int64_t pw, int64_t ph) {
+  std::vector<uint8_t> out((size_t)(pw * ph));
+  for (int64_t y = 0; y < ph; y++) {
+    const uint8_t* in = src.data() + (y < h ? y : h - 1) * w;
+    uint8_t* o = out.data() + y * pw;
+    std::memcpy(o, in, (size_t)(w < pw ? w : pw));
+    for (int64_t x = w; x < pw; x++) o[x] = in[w - 1];
+  }
+  return out;
+}
+
+void encode_jpeg(const uint8_t* rgb, int w, int h, int quality,
+                 std::vector<uint8_t>& o) {
+  if (w <= 0 || h <= 0 || w > 65535 || h > 65535)
+    fail("JPEG size out of range");
+  int ql[64], qc[64];
+  scale_quant(kStdLuma, quality, ql);
+  scale_quant(kStdChroma, quality, qc);
+
+  // jccolor.c rgb_ycc_convert
+  constexpr int SB = 16;
+  constexpr int64_t HALF = (int64_t)1 << (SB - 1);
+  constexpr int64_t CBCR_OFF = (int64_t)128 << SB;
+  auto fix = [](double x) { return (int64_t)(x * (1L << SB) + 0.5); };
+  int64_t ry[256], gy[256], by_[256], rcb[256], gcb[256], bcb[256], gcr[256],
+      bcr[256];
+  for (int i = 0; i < 256; i++) {
+    ry[i] = fix(0.29900) * i;
+    gy[i] = fix(0.58700) * i;
+    by_[i] = fix(0.11400) * i + HALF;
+    rcb[i] = -fix(0.16874) * i;
+    gcb[i] = -fix(0.33126) * i;
+    bcb[i] = fix(0.50000) * i + CBCR_OFF + HALF - 1;  // also R -> Cr
+    gcr[i] = -fix(0.41869) * i;
+    bcr[i] = -fix(0.08131) * i;
+  }
+  const int64_t npx = (int64_t)w * h;
+  std::vector<uint8_t> Y(npx), Cb(npx), Cr(npx);
+  for (int64_t i = 0; i < npx; i++) {
+    int r = rgb[3 * i], g = rgb[3 * i + 1], b = rgb[3 * i + 2];
+    Y[i] = (uint8_t)((ry[r] + gy[g] + by_[b]) >> SB);
+    Cb[i] = (uint8_t)((rcb[r] + gcb[g] + bcb[b]) >> SB);
+    Cr[i] = (uint8_t)((bcb[r] + gcr[g] + bcr[b]) >> SB);
+  }
+  // libjpeg's edge handling: luma blocks ceil(w/8) x ceil(h/8) over
+  // edge-replicated samples, MCU slots past them are dummy blocks (zero
+  // AC, the DC of the block before); chroma from the full-resolution planes
+  // replicated to whole 2x2 groups, downsampled by jcsample.c's
+  // h2v2_downsample (2x2 box, alternating 1, 2 bias), then its last row
+  // replicated to whole blocks.
+  const int64_t mcux = (w + 15) / 16, mcuy = (h + 15) / 16;
+  const int64_t ybw = (w + 7) / 8, ybh = (h + 7) / 8;
+  std::vector<uint8_t> Yp = pad_plane(Y, w, h, ybw * 8, mcuy * 16);
+  const int64_t cw = (w + 1) / 2, ch = (h + 1) / 2;
+  const int64_t cpw = mcux * 8, cph = mcuy * 8;
+  std::vector<uint8_t> Cbf = pad_plane(Cb, w, h, cpw * 2, ch * 2);
+  std::vector<uint8_t> Crf = pad_plane(Cr, w, h, cpw * 2, ch * 2);
+  std::vector<uint8_t> Cbs((size_t)(cpw * ch)), Crs((size_t)(cpw * ch));
+  for (int64_t y = 0; y < ch; y++) {
+    int bias = 1;
+    for (int64_t x = 0; x < cpw; x++) {
+      int64_t i0 = (2 * y) * (cpw * 2) + 2 * x, i1 = i0 + cpw * 2;
+      Cbs[y * cpw + x] =
+          (uint8_t)((Cbf[i0] + Cbf[i0 + 1] + Cbf[i1] + Cbf[i1 + 1] + bias) >> 2);
+      Crs[y * cpw + x] =
+          (uint8_t)((Crf[i0] + Crf[i0 + 1] + Crf[i1] + Crf[i1 + 1] + bias) >> 2);
+      bias ^= 3;
+    }
+  }
+  Cbs = pad_plane(Cbs, cpw, ch, cpw, cph);
+  Crs = pad_plane(Crs, cpw, ch, cpw, cph);
+  (void)cw;
+
+  // headers: SOI, JFIF APP0, DQT x2, SOF0, DHT x4, SOS
+  o.clear();
+  const uint8_t soi_app0[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F',
+                              'I',  'F',  0x00, 0x01, 0x01, 0x00, 0x00, 0x01,
+                              0x00, 0x01, 0x00, 0x00};
+  o.insert(o.end(), soi_app0, soi_app0 + sizeof(soi_app0));
+  for (int t = 0; t < 2; t++) {
+    const int* q = t ? qc : ql;
+    o.push_back(0xFF);
+    o.push_back(0xDB);
+    put_u16(o, 67);
+    o.push_back((uint8_t)t);
+    for (int k = 0; k < 64; k++) o.push_back((uint8_t)q[kZigzag[k]]);
+  }
+  o.push_back(0xFF);
+  o.push_back(0xC0);
+  put_u16(o, 17);
+  o.push_back(8);
+  put_u16(o, h);
+  put_u16(o, w);
+  o.push_back(3);
+  const uint8_t comps[9] = {1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1};
+  o.insert(o.end(), comps, comps + 9);
+  write_dht(o, 0x00, kDcLumaBits, kDcVals);
+  write_dht(o, 0x10, kAcLumaBits, kAcLumaVals);
+  write_dht(o, 0x01, kDcChromaBits, kDcVals);
+  write_dht(o, 0x11, kAcChromaBits, kAcChromaVals);
+  const uint8_t sos[] = {0xFF, 0xDA, 0x00, 0x0C, 0x03, 0x01, 0x00, 0x02,
+                         0x11, 0x03, 0x11, 0x00, 0x3F, 0x00};
+  o.insert(o.end(), sos, sos + sizeof(sos));
+
+  static const EncTable dcl(kDcLumaBits, kDcVals), acl(kAcLumaBits, kAcLumaVals);
+  static const EncTable dcc(kDcChromaBits, kDcVals),
+      acc(kAcChromaBits, kAcChromaVals);
+  BitWriter bw(o);
+  int pred_y = 0, pred_cb = 0, pred_cr = 0;
+  int32_t blk[64];
+  int32_t zz[4][64];
+  auto load = [&](const std::vector<uint8_t>& pl, int64_t stride, int64_t x0,
+                  int64_t y0) {
+    for (int r = 0; r < 8; r++)
+      for (int c = 0; c < 8; c++)
+        blk[r * 8 + c] = (int32_t)pl[(y0 + r) * stride + x0 + c] - 128;
+  };
+  for (int64_t my = 0; my < mcuy; my++)
+    for (int64_t mx = 0; mx < mcux; mx++) {
+      for (int yy = 0; yy < 2; yy++)
+        for (int xx = 0; xx < 2; xx++) {
+          int32_t* z = zz[yy * 2 + xx];
+          int64_t bx = mx * 2 + xx, by = my * 2 + yy;
+          if (by < ybh && bx < ybw) {
+            load(Yp, ybw * 8, bx * 8, by * 8);
+            quantize_block(blk, ql, z);
+          } else {
+            std::memset(z, 0, 64 * sizeof(int32_t));
+            z[0] = zz[yy * 2 + xx - 1][0];  // left block, or row above's last
+          }
+          emit_block(bw, z, pred_y, dcl, acl);
+        }
+      load(Cbs, cpw, mx * 8, my * 8);
+      quantize_block(blk, qc, zz[0]);
+      emit_block(bw, zz[0], pred_cb, dcc, acc);
+      load(Crs, cpw, mx * 8, my * 8);
+      quantize_block(blk, qc, zz[0]);
+      emit_block(bw, zz[0], pred_cr, dcc, acc);
+    }
+  bw.flush();
+  o.push_back(0xFF);
+  o.push_back(0xD9);
+}
+
+// ---------------------------------------------------------------------------
+// INTER_AREA at fractional ratios
+// ---------------------------------------------------------------------------
+
+struct AreaTab {
+  int64_t di, si;
+  float alpha;
+};
+
+// cv2's computeResizeAreaTab: the source samples of each destination
+// sample and their overlap weights, in order.
+std::vector<AreaTab> area_tab(int64_t ssize, int64_t dsize, int cn,
+                              double scale) {
+  std::vector<AreaTab> tab;
+  for (int64_t dx = 0; dx < dsize; dx++) {
+    double fsx1 = dx * scale;
+    double fsx2 = fsx1 + scale;
+    double cell = std::min(scale, ssize - fsx1);
+    int64_t sx1 = (int64_t)std::ceil(fsx1), sx2 = (int64_t)std::floor(fsx2);
+    sx2 = std::min(sx2, ssize - 1);
+    sx1 = std::min(sx1, sx2);
+    if (sx1 - fsx1 > 1e-3)
+      tab.push_back({dx * cn, (sx1 - 1) * cn, (float)((sx1 - fsx1) / cell)});
+    for (int64_t sx = sx1; sx < sx2; sx++)
+      tab.push_back({dx * cn, sx * cn, (float)(1.0 / cell)});
+    if (fsx2 - sx2 > 1e-3)
+      tab.push_back({dx * cn, sx2 * cn,
+                     (float)(std::min(std::min(fsx2 - sx2, 1.), cell) / cell)});
+  }
+  return tab;
+}
+
+inline uint8_t saturate_u8(float v) {
+  long iv = std::lrintf(v);  // cvRound: half to even
+  return (uint8_t)(iv < 0 ? 0 : (iv > 255 ? 255 : iv));
+}
+
+}  // namespace
+
+extern "C" {
+
+// cv2.resize(src, (dw, dh), interpolation=INTER_AREA) for uint8 [sh, sw,
+// cn] shrunk on both axes (ResizeArea_Invoker over every row).
+void image_ops_resize_area(const uint8_t* src, int64_t sh, int64_t sw,
+                           int cn, uint8_t* dst, int64_t dh, int64_t dw) {
+  const double scale_x = 1.0 / ((double)dw / sw);
+  const double scale_y = 1.0 / ((double)dh / sh);
+  std::vector<AreaTab> xtab = area_tab(sw, dw, cn, scale_x);
+  std::vector<AreaTab> ytab = area_tab(sh, dh, 1, scale_y);
+  const int64_t width = dw * cn;
+  std::vector<float> buf(width), sum(width, 0.0f);
+  int64_t prev_dy = ytab[0].di;
+  for (const AreaTab& y : ytab) {
+    const uint8_t* S = src + y.si * sw * cn;
+    std::fill(buf.begin(), buf.end(), 0.0f);
+    for (const AreaTab& x : xtab)
+      for (int c = 0; c < cn; c++) buf[x.di + c] += S[x.si + c] * x.alpha;
+    if (y.di != prev_dy) {
+      uint8_t* D = dst + prev_dy * width;
+      for (int64_t i = 0; i < width; i++) {
+        D[i] = saturate_u8(sum[i]);
+        sum[i] = y.alpha * buf[i];
+      }
+      prev_dy = y.di;
+    } else {
+      for (int64_t i = 0; i < width; i++) sum[i] += y.alpha * buf[i];
+    }
+  }
+  uint8_t* D = dst + prev_dy * width;
+  for (int64_t i = 0; i < width; i++) D[i] = saturate_u8(sum[i]);
+}
+
+
+const char* image_ops_error() { return g_error.c_str(); }
+
+// Undo the PNG row filters of `rows` scanlines, each a filter byte followed
+// by `rowbytes` bytes, with `bpp` bytes per complete pixel (>= 1).
+int image_ops_png_unfilter(const uint8_t* in, uint8_t* out, int64_t rows,
+                           int64_t rowbytes, int bpp) {
+  const uint8_t* prev = nullptr;
+  for (int64_t r = 0; r < rows; r++) {
+    int f = in[r * (rowbytes + 1)];
+    const uint8_t* src = in + r * (rowbytes + 1) + 1;
+    uint8_t* dst = out + r * rowbytes;
+    switch (f) {
+      case 0:
+        std::memcpy(dst, src, rowbytes);
+        break;
+      case 1:
+        for (int64_t i = 0; i < rowbytes; i++)
+          dst[i] = (uint8_t)(src[i] + (i >= bpp ? dst[i - bpp] : 0));
+        break;
+      case 2:
+        for (int64_t i = 0; i < rowbytes; i++)
+          dst[i] = (uint8_t)(src[i] + (prev ? prev[i] : 0));
+        break;
+      case 3:
+        for (int64_t i = 0; i < rowbytes; i++) {
+          int a = i >= bpp ? dst[i - bpp] : 0;
+          int b = prev ? prev[i] : 0;
+          dst[i] = (uint8_t)(src[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (int64_t i = 0; i < rowbytes; i++) {
+          int a = i >= bpp ? dst[i - bpp] : 0;
+          int b = prev ? prev[i] : 0;
+          int c = (prev && i >= bpp) ? prev[i - bpp] : 0;
+          dst[i] = (uint8_t)(src[i] + paeth(a, b, c));
+        }
+        break;
+      default:
+        g_error = "bad PNG filter type " + std::to_string(f);
+        return -1;
+    }
+    prev = dst;
+  }
+  return 0;
+}
+
+// Frame size of a JPEG: info = [width, height, components].
+int image_ops_jpeg_header(const uint8_t* data, int64_t n, int32_t* info) {
+  try {
+    JpegDecoder d(data, n);
+    if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG file");
+    d.pos = 2;
+    for (;;) {
+      int m = d.next_marker();
+      if (m == 0xC0 || m == 0xC1) {
+        d.read_sof(false);
+        break;
+      }
+      if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE)
+        fail("progressive JPEG is not supported", -2);
+      if (m == 0xC9 || m == 0xCB || m == 0xCD || m == 0xCC || m == 0xCF)
+        fail("arithmetic-coded JPEG is not supported", -3);
+      if (m == 0xC3 || m == 0xC5 || m == 0xC7)
+        fail("lossless or hierarchical JPEG is not supported");
+      if (m == 0xD9 || m == 0xDA) fail("JPEG without a frame header");
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      d.pos += d.u16() - 2;
+    }
+    info[0] = d.width;
+    info[1] = d.height;
+    info[2] = d.ncomp;
+    return 0;
+  } catch (const CodecError& e) {
+    g_error = e.msg;
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    g_error = "out of memory";
+    return -1;
+  }
+}
+
+// Decode into out [height, width, 3] RGB (grey replicated).
+int image_ops_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
+                          int64_t width, int64_t height) {
+  try {
+    JpegDecoder d(data, n);
+    d.parse();
+    if (d.width != width || d.height != height)
+      fail("JPEG size changed between header and decode");
+    d.to_rgb(out);
+    return 0;
+  } catch (const CodecError& e) {
+    g_error = e.msg;
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    g_error = "out of memory";
+    return -1;
+  }
+}
+
+// Encode rgb [h, w, 3] as a baseline 4:2:0 JFIF; returns its size, read it
+// with image_ops_fetch_encoded.
+int64_t image_ops_jpeg_encode(const uint8_t* rgb, int w, int h, int quality) {
+  try {
+    encode_jpeg(rgb, w, h, quality, g_encoded);
+    return (int64_t)g_encoded.size();
+  } catch (const CodecError& e) {
+    g_error = e.msg;
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    g_error = "out of memory";
+    return -1;
+  }
+}
+
+void image_ops_fetch_encoded(uint8_t* out) {
+  std::memcpy(out, g_encoded.data(), g_encoded.size());
+  std::vector<uint8_t>().swap(g_encoded);
+}
+
+}  // extern "C"

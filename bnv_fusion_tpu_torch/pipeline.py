@@ -29,6 +29,7 @@ from bnv_fusion_tpu_torch import optimize, sampler, tsdf
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel as vx
 from bnv_fusion_tpu_torch.kernels import fused_decode
+from bnv_fusion_tpu_torch.utils import image_io
 
 log = logging.getLogger(__name__)
 
@@ -346,21 +347,18 @@ class NeuralMap:
 
     @staticmethod
     def _frame_rgb(frame) -> np.ndarray:
-        """A frame's inline ``rgb`` [H, W, 3] (0-255): uint8 kept as it is,
-        so that it crosses to the device at a quarter of the bytes, and
-        anything else as float32 (``_rgb_tensor`` makes both float32 on the
-        device, the JAX package's values).  The JAX package also decodes
-        ``img_path`` with cv2; the port reads no image files yet (the
-        dataset readers, ROADMAP Queue 1 item 12)."""
+        """A frame's colour [H, W, 3] (0-255): inline ``rgb``, or else its
+        ``img_path`` decoded and area-resized to the depth's size, as the
+        JAX package does with cv2.  uint8 stays uint8, so that it crosses
+        to the device at a quarter of the bytes, and anything else becomes
+        float32 (``_rgb_tensor`` makes both float32 on the device, the JAX
+        package's values)."""
         if frame.get("rgb") is not None:
             rgb = np.asarray(frame["rgb"])
             return rgb if rgb.dtype == np.uint8 else rgb.astype(np.float32)
         path = frame.get("img_path")
         if path and os.path.exists(path):
-            raise NotImplementedError(
-                "model.fuse_color on a frame that carries only an img_path: "
-                "reading image files is not ported yet (ROADMAP Queue 1 "
-                "item 12); pass the frame's 'rgb' inline")
+            return image_io.read_color(path, np.shape(frame["depth"]))
         raise ValueError(
             "model.fuse_color is on but the frame carries neither 'rgb' nor "
             "a readable 'img_path'")

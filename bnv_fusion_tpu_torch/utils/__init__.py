@@ -1,1 +1,2 @@
-"""Host-side helpers: logging and PLY point clouds."""
+"""Host-side helpers: logging, the image codec (``image_io``), pose math
+(``motion``), profiling, visualization and the live viewer."""

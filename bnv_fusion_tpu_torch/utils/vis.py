@@ -1,14 +1,28 @@
-"""Normal shading, colored point-cloud PLYs, the headless mesh preview and
-PNG encoding: copies of bnv_fusion_tpu/utils/vis.py:32-120 (numpy only).
-The JAX package writes PNG with cv2; ``encode_png`` writes it with zlib
-and struct, so the port needs no cv2."""
+"""Depth colormaps, normal shading, colored point-cloud PLYs, the headless
+mesh preview and image writing: copies of bnv_fusion_tpu/utils/vis.py:16-131
+(numpy only).  The JAX package writes images with cv2; the port writes them
+with ``utils.image_io``."""
 
 from __future__ import annotations
 
-import struct
-import zlib
-
 import numpy as np
+
+from bnv_fusion_tpu_torch.utils import image_io
+
+
+def colorize_depth(depth: np.ndarray, max_depth: float | None = None
+                   ) -> np.ndarray:
+    """Depth map -> uint8 RGB turbo-like colormap; invalid (<=0) is black."""
+    valid = depth > 0
+    if max_depth is None:
+        max_depth = float(depth[valid].max()) if valid.any() else 1.0
+    t = np.clip(depth / max_depth, 0, 1)
+    r = np.clip(1.8 * t - 0.2, 0, 1)
+    g = np.clip(np.sin(np.pi * t) * 1.1, 0, 1)
+    b = np.clip(1.2 - 1.6 * t, 0, 1)
+    rgb = np.stack([r, g, b], -1)
+    rgb[~valid] = 0
+    return (rgb * 255).astype(np.uint8)
 
 
 def colorize_normals(normals: np.ndarray) -> np.ndarray:
@@ -36,23 +50,21 @@ def save_pointcloud_ply(path: str, pts: np.ndarray,
             f.write(np.concatenate([xyz, rgb], axis=1).tobytes())
 
 
+def save_image(path: str, rgb_uint8: np.ndarray) -> None:
+    """uint8 RGB (or grey) to ``path``: JPEG (quality 95, cv2.imwrite's
+    default) for .jpg/.jpeg, else PNG."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        image_io.write_jpeg(path, rgb_uint8)
+    else:
+        image_io.write_png(path, rgb_uint8)
+
+
 def encode_png(rgb_uint8: np.ndarray) -> bytes:
-    """[H, W, 3] uint8 RGB -> PNG bytes (8-bit truecolor, no filter)."""
-    img = np.ascontiguousarray(rgb_uint8, np.uint8)
-    h, w = img.shape[:2]
-    if img.shape != (h, w, 3):
+    """[H, W, 3] uint8 RGB -> PNG bytes."""
+    img = np.asarray(rgb_uint8)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"encode_png wants [H, W, 3] uint8, got {img.shape}")
-    # each scanline starts with its filter type byte (0: none)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)],
-                         axis=1).tobytes()
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data +
-                struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n" +
-            chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)) +
-            chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    return image_io.encode_png(img)
 
 
 def render_mesh_preview(mesh, img_res=(480, 640), eye=None,
@@ -87,20 +99,46 @@ def render_mesh_preview(mesh, img_res=(480, 640), eye=None,
     shade = (0.25 + 0.75 * np.abs(fn @ light))
 
     img = np.zeros((h, w, 3), np.float32)
-    zbuf = np.full((h, w), np.inf, np.float32)
     tri_u, tri_v, tri_z = u[f], vv[f], z[f].mean(1)
     base = np.array([0.55, 0.65, 0.8])
-    for ti in np.argsort(-tri_z):  # far to near: nearer splats overwrite
-        u0, u1 = int(tri_u[ti].min()), int(np.ceil(tri_u[ti].max()))
-        v0, v1 = int(tri_v[ti].min()), int(np.ceil(tri_v[ti].max()))
-        if u1 < 0 or v1 < 0 or u0 >= w or v0 >= h:
-            continue
-        u0, v0 = max(u0, 0), max(v0, 0)
-        u1, v1 = min(u1 + 1, w), min(v1 + 1, h)
-        if (u1 - u0) * (v1 - v0) > 64 * 64:
-            continue  # degenerate or huge projected triangle
-        patch_z = tri_z[ti]
-        sel = zbuf[v0:v1, u0:u1] > patch_z
-        zbuf[v0:v1, u0:u1][sel] = patch_z
-        img[v0:v1, u0:u1][sel] = base * shade[ti]
+    # each triangle's pixel box, clipped; off-screen and huge (degenerate)
+    # projected triangles are skipped
+    u0 = tri_u.min(1).astype(np.int64)
+    u1 = np.ceil(tri_u.max(1)).astype(np.int64)
+    v0 = tri_v.min(1).astype(np.int64)
+    v1 = np.ceil(tri_v.max(1)).astype(np.int64)
+    on = ~((u1 < 0) | (v1 < 0) | (u0 >= w) | (v0 >= h))
+    u0, v0 = np.maximum(u0, 0), np.maximum(v0, 0)
+    u1, v1 = np.minimum(u1 + 1, w), np.minimum(v1 + 1, h)
+    on &= (u1 - u0) * (v1 - v0) <= 64 * 64
+    # z-buffered splats, far to near, a nearer splat overwriting a farther
+    # one: each pixel shows the first triangle in that order with the
+    # least depth among those whose box covers it
+    order = np.argsort(-tri_z)
+    tri = order[on[order]]
+    bw, bh = u1[tri] - u0[tri], v1[tri] - v0[tri]
+    counts = bw * bh
+    owner = np.repeat(np.arange(len(tri)), counts)
+    local = np.arange(int(counts.sum())) - np.repeat(
+        np.cumsum(counts) - counts, counts)
+    pix = ((v0[tri][owner] + local // bw[owner]) * w +
+           u0[tri][owner] + local % bw[owner])
+    first = np.lexsort((owner, tri_z[tri][owner], pix))
+    pix, owner = pix[first], owner[first]
+    keep = np.ones(len(pix), bool)
+    keep[1:] = pix[1:] != pix[:-1]
+    img.reshape(-1, 3)[pix[keep]] = base * shade[tri[owner[keep]], None]
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def mesh_with_normal_colors(mesh) -> np.ndarray:
+    """Per-vertex normal-shaded colors for quick mesh inspection."""
+    v, f = mesh.vertices, mesh.faces
+    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-12)
+    vn = np.zeros_like(v)
+    np.add.at(vn, f[:, 0], fn)
+    np.add.at(vn, f[:, 1], fn)
+    np.add.at(vn, f[:, 2], fn)
+    vn /= np.maximum(np.linalg.norm(vn, axis=-1, keepdims=True), 1e-12)
+    return colorize_normals(vn)

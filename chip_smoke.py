@@ -75,6 +75,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
      equals the saved one by voxel key, 48 finite losses, a non-empty
      binary refined_0.ply, the saved refined map, no overflow, and
      fused_corner_decode launched;
+  8a. datasets: the real-data path on synthetic content written in the
+     real layouts at 480x640.  A Scene3D capture (48 frames rendered with
+     the converter's fixed camera, uint16 depth PNGs, colour PNGs, the
+     trajectory .log, a GT .ply whose AABB is the scene's bounds) through
+     generate_fusion_data scene3d, read back by fusion_inference_dataset:
+     depth bit-exact, T_wc and intr_mat within 1e-6, dimensions == the
+     bounds (the recentring is the identity), colour PSNR >= COLOR_PSNR_DB.
+     The e2e phase's own frames in the canonical layout (write_canonical,
+     JPEG colour) through run_inference scene3d --mode e2e with the e2e
+     phase's overrides, its seeded weights as an .npz --checkpoint and
+     model.fuse_color (colour only through img_path; counts zeroed just
+     before, read just after): both kernels launched, no overflow, finite
+     losses, a coloured final.ply equal to the e2e phase's where the poses
+     come back bit-equal, else within MESH_VERTEX_RTOL vertices and
+     F@1 cm >= MESH_F1_MIN both ways.  A ScanNet capture (24 frames,
+     1296x968 JPEG colour, a rotated axisAlignment) through run_inference
+     scannet --mode fuse_refine: fused_corner_decode launched, finite
+     refiner losses, a non-empty refined_0.ply; generate_fusion_data
+     scannet and one frame read with load_color: 480x640 colour.  Then
+     evaluate_bnvf, compute_chamfer, run_rgbd_integration and scripts.demo
+     (480x640, 16 frames), and the codec's timings (information only);
   9. fuse: local fusion at bench.py's operating point (phase_fuse):
      throughput through integrate_batches, best of 3 passes, and its table
      equal to sequential integrate_batch calls' bit for bit; auto
@@ -728,6 +749,372 @@ def phase_offline(tmp, params):
           f"{len(losses)} losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"refined_0.ply {n_v} vertices, {n_f} faces; {t_refine:.1f} s",
           flush=True)
+
+
+# the datasets phase: synthetic content written in the real layouts at
+# the e2e phase's width (480x640) and depth cut to 48 and 24 frames
+DATASET_FRAMES = 48
+SCANNET_FRAMES = 24
+SCANNET_COLOR_HW = (968, 1296)     # the ScanNet colour sensor's size
+COLOR_PSNR_DB = 35.0               # decoded q95 JPEG against the render
+MESH_VERTEX_RTOL = 0.01            # real-layout e2e mesh vs the e2e phase's
+MESH_F1_MIN = 0.99                 # F@1 cm of each against the other
+CODEC_REPS = 20
+DEMO_SCRIPT_ARGS = ["--res", "480", "640", "--frames", "16"]
+# run_inference scannet --mode fuse_refine: every frame, the fused decode,
+# one refiner epoch
+SCANNET_EXTRA = ["dataset.skip_images=1", "model.use_fused_decode_kernel=true",
+                 "model.max_unique_per_frame=116736", "trainer.max_epochs=1"]
+
+
+def host_ms(fn, reps: int = CODEC_REPS) -> float:
+    """Median host wall time of fn() in ms (one warm-up call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def recording(*modules):
+    """Point each module's ``main`` at its ``run``, keeping the results
+    (a CLI entry point returns only its exit code); returns the list and an
+    undo function."""
+    results = []
+    saved = [(m, m.main) for m in modules]
+
+    def via_run(mod):
+        def main(argv=None):
+            results.append((mod.__name__.split(".")[-1],
+                            mod.run(list(argv))))
+            return 0
+        return main
+
+    for m in modules:
+        m.main = via_run(m)
+
+    def undo():
+        for m, f in saved:
+            m.main = f
+    return results, undo
+
+
+def write_gt_ply(path, surface, dims, transform=None):
+    """The GT .ply: the synthetic scene's surface plus two unreferenced
+    vertices at the corners of its bounds, so that the AABB the converters
+    recentre by is the bounds, centred at the origin (``transform`` [4, 4]
+    maps the vertices into a capture's own frame)."""
+    from bnv_fusion_tpu_torch.mesh import Mesh, save_ply
+    import numpy as np
+
+    half = np.asarray(dims, np.float32) / 2
+    v = np.concatenate([surface.vertices, [-half, half]]).astype(np.float32)
+    if transform is not None:
+        v = (v @ transform[:3, :3].T + transform[:3, 3]).astype(np.float32)
+    save_ply(path, Mesh(v, surface.faces))
+
+
+def phase_datasets(tmp, params, e2e_final_path):
+    """The real-data path: converters, readers, run_inference in both modes
+    and the tools on synthetic content written in the real layouts."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import evaluation, run_e2e, test as offline
+    from bnv_fusion_tpu_torch import train
+    from bnv_fusion_tpu_torch.checkpoint import save_state
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.datasets import get_dataset
+    from bnv_fusion_tpu_torch.kernels import _build
+    from bnv_fusion_tpu_torch.mesh import load_ply
+    from bnv_fusion_tpu_torch.scripts import (compute_chamfer, demo,
+                                              evaluate_bnvf, run_inference,
+                                              run_rgbd_integration)
+    from bnv_fusion_tpu_torch.scripts import generate_fusion_data as gen
+    from bnv_fusion_tpu_torch.utils import image_io
+
+    def step(msg, t0):
+        print(f"  {msg} ({time.time() - t0:.1f} s)", flush=True)
+
+    os.makedirs(tmp, exist_ok=True)
+    weights = os.path.join(tmp, "weights.npz")
+    save_state(weights, {"params": {
+        n: {k: v.detach().cpu().numpy() for k, v in p.items()}
+        for n, p in params.items()}})
+    synth_cfg = load_config(E2E_OVERRIDES + ["dataset.load_color=true"])
+    synth = get_dataset(synth_cfg, "val")
+    dims = synth.dimensions
+    gt_ply = os.path.join(tmp, "gt.ply")
+    write_gt_ply(gt_ply, synth.gt_mesh(resolution=128), dims)
+
+    # 1. Scene3D raw layout, rendered with the converter's camera (the
+    # converter writes SCENE3D_INTR whatever the capture), converted, read
+    t0 = time.time()
+    s3 = get_dataset(synth_cfg, "val")
+    s3.intr = gen.SCENE3D_INTR.astype(np.float32)
+    raw = os.path.join(tmp, "scene3d_raw", "scene")
+    for sub in ("color", "depth"):
+        os.makedirs(os.path.join(raw, "scene_png", sub))
+    shutil.copy(gt_ply, os.path.join(raw, "scene.ply"))
+    s3_frames = []
+    with open(os.path.join(raw, "scene_trajectory.log"), "w") as log:
+        for i in range(DATASET_FRAMES):
+            f = s3[i]
+            rgb = np.clip(f["rgb"], 0, 255).astype(np.uint8)
+            image_io.write_png(os.path.join(raw, "scene_png", "color",
+                                            f"{i:06d}.png"), rgb)
+            image_io.write_png(os.path.join(raw, "scene_png", "depth",
+                                            f"{i:06d}.png"), f["depth_raw"])
+            log.write(f"{i} {i} {i + 1}\n")
+            for row in np.asarray(f["T_wc"], np.float64):
+                log.write(" ".join(f"{v:.9f}" for v in row) + "\n")
+            s3_frames.append((f["depth_raw"], f["T_wc"], rgb))
+    recenter, gt_dims = gen.recenter_from_mesh(os.path.join(raw, "scene.ply"))
+    canon1 = os.path.join(tmp, "scene3d_canon")
+    if gen.main(["scene3d", "--root", os.path.dirname(raw), "--out", canon1,
+                 "--seqs", "scene"]) != 0:
+        raise AssertionError("generate_fusion_data scene3d failed")
+    rd = get_dataset(load_config([
+        "dataset=fusion_inference_dataset", f"data_dir={canon1}",
+        "dataset.scan_id=scene", "dataset.downsample_scale=0.",
+        "dataset.stage_raw_depth=true", "dataset.load_color=true"]), "val")
+    if len(rd) != DATASET_FRAMES:
+        raise AssertionError(f"canonical reader: {len(rd)} frames")
+    if np.abs(recenter[:3, 3]).max() > 1e-6 or \
+            np.abs(rd.dimensions - dims).max() > 1e-6 or \
+            np.abs(gt_dims - dims).max() > 1e-6:
+        raise AssertionError(f"converter recentring {recenter[:3, 3]} / "
+                             f"dimensions {rd.dimensions} vs {dims}")
+    pose_err = intr_err = 0.0
+    psnr = []
+    for i, (raw_d, T_wc, rgb) in enumerate(s3_frames):
+        f = rd[i]
+        if not np.array_equal(f["depth_raw"], raw_d):
+            raise AssertionError(f"frame {i}: depth differs after the "
+                                 "converter's round trip")
+        pose_err = max(pose_err, float(np.abs(f["T_wc"] - T_wc).max()))
+        intr_err = max(intr_err, float(np.abs(f["intr_mat"] -
+                                              s3.intr).max()))
+        mse = np.mean((f["rgb"].astype(np.float64) - rgb) ** 2)
+        psnr.append(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+    if pose_err > 1e-6 or intr_err > 1e-6 or min(psnr) < COLOR_PSNR_DB:
+        raise AssertionError(f"converter round trip: T_wc err {pose_err}, "
+                             f"intr err {intr_err}, colour PSNR "
+                             f"{min(psnr):.2f} dB")
+    step(f"scene3d: {DATASET_FRAMES} frames converted and read back; depth "
+         f"bit-exact, T_wc err {pose_err:.2e}, intr err {intr_err:.2e}, "
+         f"dimensions == bounds, colour PSNR min {min(psnr):.2f} dB", t0)
+
+    # 2. run_inference --mode e2e on the canonical layout of the e2e
+    # phase's own frames (the synthetic camera), written by the converter's
+    # writer; colour reaches the prior only through img_path
+    t0 = time.time()
+    canon2 = os.path.join(tmp, "e2e_canon")
+    src = os.path.join(tmp, "e2e_color")
+    os.makedirs(src)
+    synth_frames = [synth[i] for i in range(DATASET_FRAMES)]
+    frames, bit_equal = [], True
+    for i, f in enumerate(synth_frames):
+        image_io.write_png(os.path.join(src, f"{i}.png"),
+                           np.clip(f["rgb"], 0, 255).astype(np.uint8))
+        frames.append((os.path.join(src, f"{i}.png"), f["depth_raw"],
+                       f["T_wc"], f["intr_mat"]))
+    gen.write_canonical(os.path.join(canon2, "scene"), frames, dims)
+    back = get_dataset(load_config([
+        "dataset=fusion_inference_dataset", f"data_dir={canon2}",
+        "dataset.scan_id=scene"]), "val")
+    for i, (_, _, T_wc, intr) in enumerate(frames):
+        g = back[i]
+        bit_equal &= bool(np.array_equal(g["T_wc"],
+                                         np.asarray(T_wc, np.float32)) and
+                          np.array_equal(g["intr_mat"],
+                                         np.asarray(intr, np.float32)))
+    out_dir = os.path.join(tmp, "e2e_real")
+    extra = [
+        "dataset.skip_images=1", "dataset.stage_raw_depth=true",
+        "model.integrate_batch_size=16", "model.use_fused_decode_kernel=true",
+        "model.fuse_color=true"] + E2E_OVERRIDES + [
+        f"model.ray_tracer.ray_max_dist="
+        f"{synth_cfg.model.ray_tracer.ray_max_dist}",
+        f"output_dir={out_dir}"]
+    results, undo = recording(run_e2e)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    try:
+        rc = run_inference.main([
+            "scene3d", "--seqs", "scene", "--checkpoint", weights,
+            "--data_dir", canon2, "--min_pts_in_grid",
+            str(synth_cfg.model.min_pts_in_grid), "--mode", "e2e",
+            "--extra"] + extra)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if rc != 0 or len(results) != 1:
+        raise AssertionError(f"run_inference scene3d --mode e2e rc {rc}")
+    res = results[0][1]
+    nmap = res["nmap"]
+    for name in ("seg_reduce_sorted", "fused_corner_decode"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"run_inference e2e never launched {name}")
+    losses = np.asarray(nmap.optimize_losses, np.float64)
+    if nmap.overflow != 0 or not np.all(np.isfinite(losses)) or \
+            len(losses) != res["global_steps"]:
+        raise AssertionError(f"run_inference e2e: overflow {nmap.overflow}, "
+                             f"losses {losses}")
+    final_path = os.path.join(out_dir, "run_e2e", "scene", "final.ply")
+    head, n_v, n_f = read_ply_header(final_path)
+    if "binary_little_endian" not in head or n_v <= 0 or n_f <= 0 or \
+            "property uchar red" not in head:
+        raise AssertionError(f"final.ply: {n_v} vertices, {n_f} faces, "
+                             "coloured: " + str("uchar red" in head))
+    mine, ref = load_ply(final_path), load_ply(e2e_final_path)
+    if bit_equal:
+        if not (np.array_equal(mine.vertices, ref.vertices) and
+                np.array_equal(mine.faces, ref.faces)):
+            raise AssertionError("poses came back bit-equal, but the mesh "
+                                 "differs from the e2e phase's")
+        agree = "identical to the e2e phase's mesh (poses bit-equal)"
+    else:
+        rel = abs(len(mine.vertices) - len(ref.vertices)) / len(ref.vertices)
+        f1 = [evaluation.evaluate_mesh(a, b, thresholds=(0.01,))["@0.01"]
+              ["fscore"] for a, b in ((mine, ref), (ref, mine))]
+        if rel > MESH_VERTEX_RTOL or min(f1) < MESH_F1_MIN:
+            raise AssertionError(f"real-layout mesh vs e2e phase: vertices "
+                                 f"{len(mine.vertices)} vs "
+                                 f"{len(ref.vertices)}, F@1cm {f1}")
+        agree = (f"vs the e2e phase's mesh: vertices {len(mine.vertices)} "
+                 f"vs {len(ref.vertices)} ({rel:.4%}), F@1cm {f1[0]:.4f} / "
+                 f"{f1[1]:.4f}")
+    tm = nmap.timer.times
+    step(f"run_inference scene3d --mode e2e: launches {launches}; "
+         f"{len(nmap.frames)} frames, local {tm['local']:.2f} s, optimize "
+         f"{tm['global']:.2f} s, mesh {tm['mesh']:.2f} s; final.ply {n_v} "
+         f"vertices, coloured; {agree}", t0)
+    del res, nmap, results
+
+    # 3. ScanNet raw layout: sensor-sized colour, an axis alignment that is
+    # not the identity; fuse_refine (test.py, then the refiner)
+    t0 = time.time()
+    scan = "scene0000_00"
+    sroot = os.path.join(tmp, "scannet_raw")
+    fdir = os.path.join(sroot, scan, "frames")
+    for sub in ("color", "depth", "pose", "intrinsic"):
+        os.makedirs(os.path.join(fdir, sub))
+    c, s_ = np.cos(0.5), np.sin(0.5)
+    align = np.array([[c, -s_, 0, 0.3], [s_, c, 0, -0.2], [0, 0, 1, 0.1],
+                      [0, 0, 0, 1]])
+    with open(os.path.join(sroot, scan, f"{scan}.txt"), "w") as fh:
+        fh.write("axisAlignment = " +
+                 " ".join(f"{v:.12f}" for v in align.ravel()) + "\n")
+    unalign = np.linalg.inv(align)
+    write_gt_ply(os.path.join(sroot, scan, f"{scan}_vh_clean_2.ply"),
+                 load_ply(gt_ply), dims, unalign)
+    K = np.eye(4)
+    K[:3, :3] = synth.intr
+    np.savetxt(os.path.join(fdir, "intrinsic", "intrinsic_depth.txt"), K)
+    for i, f in enumerate(synth_frames[:SCANNET_FRAMES]):
+        image_io.write_png(os.path.join(fdir, "depth", f"{i}.png"),
+                           f["depth_raw"])
+        rgb = torch.nn.functional.interpolate(
+            torch.as_tensor(f["rgb"]).permute(2, 0, 1)[None],
+            size=SCANNET_COLOR_HW, mode="bilinear", align_corners=False)
+        rgb = rgb[0].permute(1, 2, 0).clamp(0, 255).to(torch.uint8).numpy()
+        image_io.write_jpeg(os.path.join(fdir, "color", f"{i}.jpg"), rgb)
+        np.savetxt(os.path.join(fdir, "pose", f"{i}.txt"),
+                   np.linalg.inv(unalign @ np.asarray(f["T_wc"], np.float64)))
+    sout = os.path.join(tmp, "scannet_out")
+    results, undo = recording(offline, train)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    try:
+        rc = run_inference.main([
+            "scannet", "--seqs", scan, "--checkpoint", weights, "--data_dir",
+            sroot, "--mode", "fuse_refine", "--extra"] + SCANNET_EXTRA +
+            [f"output_dir={sout}"])
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if rc != 0 or [r[0] for r in results] != ["test", "train"]:
+        raise AssertionError(f"run_inference scannet --mode fuse_refine rc "
+                             f"{rc}")
+    fused, refined = results[0][1], results[1][1]
+    rmap = refined["refiner"].nmap
+    rlosses = np.asarray(rmap.optimize_losses, np.float64)
+    if launches.get("fused_corner_decode", 0) <= 0:
+        raise AssertionError("fuse_refine never launched fused_corner_decode")
+    if fused["nmap"].overflow != 0 or rmap.overflow != 0 or \
+            len(rlosses) == 0 or not np.all(np.isfinite(rlosses)):
+        raise AssertionError(f"fuse_refine: overflow {fused['nmap'].overflow}"
+                             f"/{rmap.overflow}, refiner losses {rlosses}")
+    refined_ply = os.path.join(refined["out_dir"], "refined_0.ply")
+    head, rn_v, rn_f = read_ply_header(refined_ply)
+    if "binary_little_endian" not in head or rn_v <= 0 or rn_f <= 0:
+        raise AssertionError(f"refined_0.ply: {rn_v} vertices, {rn_f} faces")
+    canon3 = os.path.join(tmp, "scannet_canon")
+    if gen.main(["scannet", "--root", sroot, "--out", canon3, "--seqs",
+                 scan]) != 0:
+        raise AssertionError("generate_fusion_data scannet failed")
+    g = get_dataset(load_config([
+        "dataset=fusion_inference_dataset", f"data_dir={canon3}",
+        f"dataset.scan_id={scan}", "dataset.load_color=true"]), "val")[0]
+    if g["rgb"].shape != tuple(synth_cfg.dataset.img_res) + (3,):
+        raise AssertionError(f"scannet colour read at {g['rgb'].shape}")
+    step(f"run_inference scannet --mode fuse_refine: launches {launches}; "
+         f"test.py {len(fused['nmap'].frames)} frames, refiner "
+         f"{len(rlosses)} losses {rlosses[0]:.5f} -> {rlosses[-1]:.5f}, "
+         f"refined_0.ply {rn_v} vertices; generate_fusion_data scannet, "
+         f"frame 0 colour {SCANNET_COLOR_HW[1]}x{SCANNET_COLOR_HW[0]} -> "
+         f"{g['rgb'].shape[1]}x{g['rgb'].shape[0]}", t0)
+    del fused, refined, rmap, results
+
+    # 4. the tools
+    t0 = time.time()
+    js = os.path.join(tmp, "eval.json")
+    if evaluate_bnvf.main(["--pred", final_path, refined_ply, "--gt", gt_ply,
+                           gt_ply, "--json_out", js]) != 0 or \
+            compute_chamfer.main([final_path, gt_ply,
+                                  "--normal_consistency"]) != 0:
+        raise AssertionError("evaluate_bnvf / compute_chamfer failed")
+    rg_out = os.path.join(tmp, "rgbd")
+    if run_rgbd_integration.main([
+            "dataset=fusion_inference_dataset", f"data_dir={canon2}",
+            "dataset.scan_id=scene", "model.tsdf_voxel_size=0.02",
+            f"output_dir={rg_out}"]) != 0:
+        raise AssertionError("run_rgbd_integration extracted no surface")
+    _, tn_v, tn_f = read_ply_header(os.path.join(
+        rg_out, "rgbd_integration", "scene_tsdf.ply"))
+    if tn_v <= 0 or tn_f <= 0:
+        raise AssertionError("run_rgbd_integration: empty mesh")
+    dout = os.path.join(tmp, "demo_script")
+    if demo.main(["--out", dout] + DEMO_SCRIPT_ARGS) != 0:
+        raise AssertionError("scripts.demo failed")
+    for name in ("gt.png", "before_optim.png", "final.png", "metrics.json"):
+        if os.path.getsize(os.path.join(dout, name)) <= 0:
+            raise AssertionError(f"scripts.demo wrote no {name}")
+    step(f"tools: evaluate_bnvf and compute_chamfer (F-scores above are "
+         f"information only, untrained weights); run_rgbd_integration "
+         f"{tn_v} vertices, {tn_f} faces; scripts.demo "
+         f"{' '.join(DEMO_SCRIPT_ARGS)} wrote its 3 PNGs and metrics.json",
+         t0)
+
+    # 5. codec timings (host, this machine's CPU)
+    depth_png = os.path.join(fdir, "depth", "0.png")
+    jpg = os.path.join(fdir, "color", "0.jpg")
+    rgb0 = np.clip(synth_frames[0]["rgb"], 0, 255).astype(np.uint8)
+    t_png = host_ms(lambda: image_io.read_png(depth_png))
+    t_jpg = host_ms(lambda: image_io.read_jpeg(jpg))
+    hw = tuple(synth_cfg.dataset.img_res)
+    t_area = host_ms(lambda: image_io.read_color(jpg, hw))
+    t_enc = host_ms(lambda: image_io.encode_jpeg(rgb0, 95))
+    size = f"{hw[1]}x{hw[0]}"
+    print(f"  codec (host, median of {CODEC_REPS}): {size} 16-bit depth PNG "
+          f"read {t_png:.2f} ms; {SCANNET_COLOR_HW[1]}x{SCANNET_COLOR_HW[0]} "
+          f"JPEG read {t_jpg:.2f} ms (with the area resize to {size}: "
+          f"{t_area:.2f} ms); {size} JPEG write {t_enc:.2f} ms", flush=True)
 
 
 def read_ply_header(path):
@@ -1752,6 +2139,7 @@ def main() -> int:
         if not bool(torch.isfinite(nmap.table.features).all()):
             return fail("table features are not finite")
         print(f"  final.ply: {n_v} vertices, {n_f} faces", flush=True)
+        e2e_final = os.path.join(wd, "final.ply")
         phase_reference(nmap)
         check_prefetch(nmap, out["final"])
         print(f"phase e2e: {time.time() - t0:.1f} s (reference and "
@@ -1789,6 +2177,12 @@ def main() -> int:
         if off_launches.get("fused_corner_decode", 0) <= 0:
             return fail("the offline flow never launched fused_corner_decode")
         print(f"phase offline: {time.time() - t0:.1f} s", flush=True)
+
+        print("phase datasets: the real-data path (converters, readers, "
+              "run_inference, tools)", flush=True)
+        t0 = time.time()
+        phase_datasets(os.path.join(tmp, "datasets"), params, e2e_final)
+        print(f"phase datasets: {time.time() - t0:.1f} s", flush=True)
 
         print("phase fuse: local fusion at bench.py's point", flush=True)
         t0 = time.time()

@@ -237,8 +237,9 @@ def test_run_e2e_with_option(name, tmp_path):
 
 
 def test_fuse_color_frame_with_only_an_img_path_raises(tmp_path):
-    """The port reads no image files yet: a fuse_color frame whose colour
-    is only a readable img_path names the dataset readers' item."""
+    """A fuse_color frame whose colour is only an img_path is decoded (the
+    colours themselves are held in tests/test_torch_datasets.py); a file
+    that is no readable image raises the codec's ValueError."""
     cfg = tload_config(OVERRIDES + ["device_type=cpu", "model.fuse_color=true"])
     frame = dict(SyntheticDemoDataset(jload_config(OVERRIDES), "val")[0])
     frame.pop("rgb", None)
@@ -248,18 +249,21 @@ def test_fuse_color_frame_with_only_an_img_path_raises(tmp_path):
     nm = TNeuralMap(np.array([2.6, 2.6, 1.6], np.float32), cfg,
                     run_e2e.load_params(cfg))
     for fuse in (nm.integrate, lambda f: nm.integrate_batch([f, f])):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP Queue 1 item 12\)"):
+        with pytest.raises(ValueError, match="PNG"):
             fuse(frame)
 
 
 def test_port_runs_without_jax():
     """Import the port and fuse a tiny frame in a fresh interpreter where
-    importing jax (or flax/optax/sklearn/yaml/cv2/the JAX package) fails."""
+    importing jax (or flax/optax/sklearn/yaml/cv2/PIL/imageio/torchvision/
+    open3d/trimesh/the JAX package) fails; import every reader, the codec,
+    the profiling tools and the six scripts, and read a canonical frame
+    with its colour that the port itself wrote."""
     code = r"""
-import builtins, sys
+import builtins, os, sys
 blocked = ("jax", "jaxlib", "flax", "optax", "sklearn", "yaml", "cv2",
-           "bnv_fusion_tpu")
+           "bnv_fusion_tpu", "PIL", "imageio", "torchvision", "open3d",
+           "trimesh")
 real_import = builtins.__import__
 def guarded(name, *a, **k):
     if name.split(".")[0] in blocked:
@@ -328,6 +332,28 @@ g = fusion.sdf_gradient(onm.table.features, onm.table, onm.params,
                         t([[0.0, 0.0, 0.0]]), onm.bound_min, 0.08, 0,
                         layout="fm")
 assert g.shape == (1, 3)
+# the real-data path: readers, codec, profiling and scripts, then one
+# canonical frame written by the port and read back with its colour
+import tempfile
+from bnv_fusion_tpu_torch.datasets import (canonical, scannet, arkit,
+                                           synthetic_idr, arkitscenes,
+                                           refiner, fusion_windows)
+from bnv_fusion_tpu_torch.utils import image_io, profiling, motion
+from bnv_fusion_tpu_torch.scripts import (compute_chamfer, evaluate_bnvf,
+                                          generate_fusion_data, run_inference,
+                                          run_rgbd_integration, demo)
+tmp = tempfile.mkdtemp()
+of = ods[0]
+image_io.write_png(os.path.join(tmp, "c.png"),
+                   np.clip(of["rgb"], 0, 255).astype(np.uint8))
+generate_fusion_data.write_canonical(
+    os.path.join(tmp, "scene"),
+    [(os.path.join(tmp, "c.png"), (of["depth"] * 1000).astype(np.uint16),
+      of["T_wc"], of["intr_mat"])], ods.dimensions)
+ccfg = load_config(["dataset=fusion_inference_dataset", f"data_dir={tmp}",
+                    "dataset.scan_id=scene", "dataset.load_color=true"])
+cf = get_dataset(ccfg, "val")[0]
+assert cf["rgb"].shape == (30, 40, 3) and cf["rgb"].std() > 1.0
 assert not any(m.split(".")[0] in blocked for m in sys.modules)
 print("ok")
 """
