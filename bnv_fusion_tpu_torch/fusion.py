@@ -1,15 +1,17 @@
 """Local-level fusion (cell-keyed sort-reduce) and SDF decode through the
 sparse volume.
 
-Counterpart of bnv_fusion_tpu/fusion.py:45-1251 for dense slot-map tables.
-Local fusion: a frame's oriented points are sorted by containing cell, encoded
-by the PointNet MLP, reduced per (cell, floor/ceil code) group, scattered to
-the 8 corner voxels, reduced again per voxel, and folded into the table with
-the reference's running mean (weight = clip(count / 32, 1), voxels under
-min_pts_in_grid points dropped).  ``fuse_frames_merged`` folds K frames into
-one table update; ``fuse_frame_sorted`` (``fuse_algorithm: corner``) sorts
-the 8N (corner, feature) entries in one stage instead.  Tables are updated
-IN PLACE.  All sorts are stable, like ``lax.sort``.  ``compute_dtype``
+Counterpart of bnv_fusion_tpu/fusion.py:45-1251.  Local fusion on the
+slot-map tables (dense, blocks): a frame's oriented points are sorted by
+containing cell, encoded by the PointNet MLP, reduced per (cell,
+floor/ceil code) group, scattered to the 8 corner voxels, reduced again per
+voxel, and folded into the table with the reference's running mean
+(weight = clip(count / 32, 1), voxels under min_pts_in_grid points
+dropped).  ``fuse_frames_merged`` folds K frames into one table update;
+``fuse_frame_sorted`` (``fuse_algorithm: corner``) sorts the 8N (corner,
+feature) entries in one stage instead.  The hash table (unbounded scenes)
+takes capacity-sized scatter accumulators instead.  Tables are updated IN
+PLACE.  All sorts are stable, like ``lax.sort``.  ``compute_dtype``
 (``model.fuse_dtype``) is the encoder's operand precision
 (``nn.mlp_apply``).
 """
@@ -21,7 +23,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from bnv_fusion_tpu_torch import nn as bnn
-from bnv_fusion_tpu_torch import table_dense as _dense
+from bnv_fusion_tpu_torch import table as _hash
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel
 from bnv_fusion_tpu_torch.kernels import (fused_corner_decode,
@@ -491,16 +493,16 @@ def fuse_frame(table, params: Dict[str, Any], pts_w, normals, valid,
                compute_dtype: torch.dtype = torch.float32,
                max_unique: int = 1 << 19, algorithm: str = "cell",
                max_unique_cells: Optional[int] = None) -> FrameStats:
-    """Integrate one frame's oriented points into the table, in place:
-    ``algorithm="cell"`` the two-stage cell-keyed sort-reduce
-    (``fuse_frame_cellsort``), anything else the one-stage corner-keyed sort
-    (``fuse_frame_sorted``).  Both fuse the same voxel set and weights.
-    The JAX package's hash-table branch belongs to the hash layout, which is
-    not ported (ROADMAP Queue 1 item 13)."""
-    if not isinstance(table, _dense.DenseIndexedTable):
-        raise NotImplementedError(
-            "fuse_frame on a hash table is not ported yet (ROADMAP Queue 1 "
-            "item 13)")
+    """Integrate one frame's oriented points into the table, in place.  On
+    the slot-map tables (dense, blocks) ``algorithm="cell"`` takes the
+    two-stage cell-keyed sort-reduce (``fuse_frame_cellsort``), anything
+    else the one-stage corner-keyed sort (``fuse_frame_sorted``); both fuse
+    the same voxel set and weights.  The hash table takes
+    ``_fuse_frame_hash``."""
+    if isinstance(table, _hash.SparseVoxelTable):
+        return _fuse_frame_hash(table, params, pts_w, normals, valid,
+                                bound_min, bound_max, voxel_size,
+                                min_pts_in_grid, compute_dtype)
     if algorithm == "cell":
         return fuse_frame_cellsort(
             table, params, pts_w, normals, valid, bound_min, bound_max,
@@ -510,6 +512,49 @@ def fuse_frame(table, params: Dict[str, Any], pts_w, normals, valid,
                              bound_max, voxel_size, min_pts_in_grid,
                              compute_dtype=compute_dtype,
                              max_unique=max_unique)
+
+
+def _fuse_frame_hash(table, params: Dict[str, Any], pts_w, normals, valid,
+                     bound_min, bound_max, voxel_size: float,
+                     min_pts_in_grid: int,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> FrameStats:
+    """``fuse_frame`` on a hash table, in place: insert the 8N corner keys,
+    then per-slot feature sums and counts by two capacity-sized scatter-adds
+    (rows that did not land go to a spare row) and the reference's running
+    mean (weight = clip(count / 32, 1), slots under min_pts dropped)."""
+    n = pts_w.shape[0]
+    cap = table.capacity
+    fdim = table.feat_dims
+    dev = pts_w.device
+    corners, feats, valid8 = encode_corner_features(
+        params, pts_w, normals, valid, bound_min, bound_max, voxel_size,
+        compute_dtype)
+    slots, ok = tbl.insert(table, corners.reshape(n * 8, 3),
+                           valid8.reshape(n * 8))
+    idx = torch.where(ok, slots, cap)
+    feat_sum = torch.zeros((cap + 1, fdim), dtype=torch.float32, device=dev) \
+        .index_add_(0, idx, feats.reshape(n * 8, fdim))[:cap]
+    cnt = torch.zeros((cap + 1,), dtype=torch.float32, device=dev) \
+        .index_add_(0, idx, torch.ones((n * 8,), device=dev))[:cap]
+
+    touched = cnt > 0
+    mean_feats = feat_sum / torch.clamp(cnt, min=1.0)[:, None]
+    new_w = torch.clamp(cnt / 32.0, max=1.0)
+    keep = touched & (cnt >= min_pts_in_grid)
+    old_w = table.weights
+    upd_w = old_w + new_w
+    upd_f = (table.features * old_w[:, None] + mean_feats * new_w[:, None]) / \
+        torch.clamp(upd_w, min=1e-12)[:, None]
+    table.features = torch.where(keep[:, None], upd_f, table.features)
+    table.weights = torch.where(keep, upd_w, table.weights)
+    # num_hits: frames that contributed a real (>= min_pts) observation
+    table.num_hits = torch.where(keep, table.num_hits + 1.0, table.num_hits)
+
+    n_touched = touched.to(torch.float32).sum()
+    return FrameStats(n_avg_pts=cnt.sum() / torch.clamp(n_touched, min=1.0),
+                      n_touched=n_touched,
+                      n_valid_pts=valid8[:, 0].to(torch.float32).sum())
 
 
 def fuse_frame_sorted(table, params: Dict[str, Any], pts_w, normals, valid,
@@ -677,11 +722,13 @@ def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
     ``masked_fill``), the nearest-sampled prior is added.  With
     ``use_fused_kernel`` the PE + MLP + blend run in ``fused_corner_decode``
     (forward only), on ``packed_decoder`` (its ``packed``) where given.
-    ``layout="fm"`` takes ``decode_points_fm`` unless the fused kernel is
-    on, as in the JAX package (the kernel has its own layout)."""
+    ``layout="fm"`` takes ``decode_points_fm`` on the slot-map tables
+    unless the fused kernel is on, as in the JAX package (the kernel has its
+    own layout; a hash table decodes in the rows layout)."""
     if layout not in ("rows", "fm"):
         raise ValueError(f"unknown decode layout {layout!r} (rows | fm)")
-    if layout == "fm" and not use_fused_kernel:
+    if layout == "fm" and not use_fused_kernel and \
+            not isinstance(table, _hash.SparseVoxelTable):
         return decode_points_fm(features, table, params, pts, bound_min,
                                 voxel_size, min_pts_in_grid,
                                 sdf_delta=sdf_delta, n_xyz=n_xyz,
@@ -722,11 +769,7 @@ def decode_points_fm(features: torch.Tensor, table, params: Dict[str, Any],
     order k * M + i, so the decoder is W^T @ X on wide operands.  The
     corners are where(pattern, ceil, floor) of the coordinates, blended
     with normalized trilinear weights; differentiable w.r.t. ``features``
-    and ``pts``."""
-    if not isinstance(table, _dense.DenseIndexedTable):
-        raise NotImplementedError(
-            "decode_points_fm on a non-dense table is not ported yet "
-            "(ROADMAP Queue 1 item 13)")
+    and ``pts``.  Slot-map tables (dense, blocks) only."""
     m = pts.shape[0]
     dev = pts.device
     zero = torch.zeros((), device=dev)
@@ -748,8 +791,8 @@ def decode_points_fm(features: torch.Tensor, table, params: Dict[str, Any],
     inside = ((cor_i[:, 0] >= 0) & (cor_i[:, 0] < nx[0]) &
               (cor_i[:, 1] >= 0) & (cor_i[:, 1] < nx[1]) &
               (cor_i[:, 2] >= 0) & (cor_i[:, 2] < nx[2]))   # [8, M]
-    slots, found = _dense.lookup_coords3(table, cor_i[:, 0], cor_i[:, 1],
-                                         cor_i[:, 2], inside)
+    slots, found = tbl.lookup_coords3(table, cor_i[:, 0], cor_i[:, 1],
+                                      cor_i[:, 2], inside)
     flat_slots = slots.reshape(8 * m)                       # corner-major
     foundf = found.reshape(8 * m)
     w = torch.where(foundf, table.weights[flat_slots], zero).reshape(8, m)

@@ -3,8 +3,9 @@
 Counterpart of bnv_fusion_tpu/models/fusion_refiner.py:32-127: load a fused
 sparse volume (the hand-off from ``test.py``) and an optional metric TSDF
 prior ``.npy`` (resampled trilinearly when its grid differs from the
-volume's) or, with ``model.prior_from_noisy_depth``, a prior accumulated
-from noise-degraded depth; keep the decoder weights fixed and optimize the
+volume's, onto the dense grid of either prior layout) or, with
+``model.prior_from_noisy_depth``, a prior accumulated from noise-degraded
+depth; keep the decoder weights fixed and optimize the
 latents with the pipeline's render loss over the dataset's frames; export a
 mesh per epoch and save the refined map.
 """
@@ -70,7 +71,10 @@ class FusionRefiner:
             log.info(f"loading tsdf prior {tsdf_path}")
             metric = np.load(tsdf_path)
         if metric is not None:
-            dst_shape = tuple(nmap.tsdf_vol.sdf.shape)
+            # the prior's dense grid, also on a block-major volume (the JAX
+            # package takes that volume's [n_blocks, 64] brick shape here,
+            # ROADMAP Queue 3); set_tsdf_prior stores it block-major
+            dst_shape = nmap.prior_shape()
             if metric.shape != dst_shape:
                 # trilinear resize with align_corners=True: source index =
                 # destination index * (S - 1) / (D - 1) per axis

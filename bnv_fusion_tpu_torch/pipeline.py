@@ -1,10 +1,12 @@
 """NeuralMap: the online bi-level fusion pipeline (integrate / optimize / mesh).
 
 Counterpart of bnv_fusion_tpu/pipeline.py:36-1546 (with demo mode's
-incremental mesh, :1398-1496), limited to one device, the dense slot-map
-table and the dense TSDF prior.  PyTorch runs eagerly, so the JAX package's
-jit caches have no counterpart, and a width change (``_widen``) needs no
-rebuild.  The device
+incremental mesh, :1398-1496), limited to one device.  The table routes as
+``tables.create_table`` does (dense, or blocks for big grids), and the TSDF
+prior is dense or, for big scenes (``model.tsdf_layout``), block-major
+with frustum-exact sparse updates.  PyTorch runs eagerly, so the JAX
+package's jit caches have no counterpart, and a width change (``_widen``)
+needs no rebuild.  The device
 comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
 "the accelerator") and ``cuda`` select CUDA and raise where there is none;
 ``cpu`` is for tests.  Options this port does not implement yet raise
@@ -25,7 +27,7 @@ import torch
 from bnv_fusion_tpu_torch import checkpoint as ckpt_io
 from bnv_fusion_tpu_torch import fusion, geometry, mesh as mesh_mod
 from bnv_fusion_tpu_torch import nn as bnn
-from bnv_fusion_tpu_torch import optimize, sampler, tsdf
+from bnv_fusion_tpu_torch import optimize, sampler, table_blocks, tsdf
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel as vx
 from bnv_fusion_tpu_torch.kernels import fused_decode
@@ -58,8 +60,6 @@ def check_supported(config) -> None:
 
     if str(getattr(m, "table_layout", "auto")) != "auto":
         refuse(f"model.table_layout={m.table_layout}", 14)
-    if str(getattr(m, "tsdf_layout", "auto")) == "blocks":
-        refuse("model.tsdf_layout=blocks", 13)
     for name in ("fuse_devices", "optimize_devices", "pretrain_devices"):
         v = str(getattr(t, name, 1))
         if v in ("all", "0") or int(v) > 1:
@@ -131,21 +131,24 @@ class NeuralMap:
                                       n_xyz=self.n_xyz, device=self.device)
 
         self.tsdf_voxel_size = float(getattr(m, "tsdf_voxel_size", 0.025))
+        # model.fuse_color: an RGB running mean in the prior, read by
+        # extract_mesh for vertex colours (geometry is unaffected)
+        self.fuse_color = bool(getattr(m, "fuse_color", False))
+        # prior layout: dense [X, Y, Z] for small scenes; block-major bricks
+        # with frustum-exact sparse updates (tsdf.integrate_blocks) under
+        # model.tsdf_layout=blocks, or under auto from 8M prior voxels
+        layout = str(getattr(m, "tsdf_layout", "auto"))
         min_c2, max_c2, _ = vx.get_world_range(self.dimensions,
                                                self.tsdf_voxel_size)
         prior_vox = int(np.prod(np.ceil(
             (max_c2 - min_c2) / self.tsdf_voxel_size)))
-        if str(getattr(m, "tsdf_layout", "auto")) == "auto" and \
-                prior_vox >= 8_000_000:
-            raise NotImplementedError(
-                f"a prior grid of {prior_vox} voxels routes to the block-major "
-                "TSDF volume, which is not ported yet (ROADMAP Queue 1 item 13)")
-        # model.fuse_color: an RGB running mean in the prior, read by
-        # extract_mesh for vertex colours (geometry is unaffected)
-        self.fuse_color = bool(getattr(m, "fuse_color", False))
-        self.tsdf_vol, _ = tsdf.create_tsdf_volume(
-            self.dimensions, self.tsdf_voxel_size, device=self.device,
-            with_color=self.fuse_color)
+        create = (tsdf.create_tsdf_volume_bm
+                  if layout == "blocks" or
+                  (layout == "auto" and prior_vox >= 8_000_000)
+                  else tsdf.create_tsdf_volume)
+        self.tsdf_vol, _ = create(self.dimensions, self.tsdf_voxel_size,
+                                  device=self.device,
+                                  with_color=self.fuse_color)
 
         # compaction widths: ints from the config, or "auto" = sized from an
         # occupancy probe of the first batch (fusion.frame_width_counts) with
@@ -174,6 +177,7 @@ class NeuralMap:
         self._window: Optional[tuple] = None
         self._window_intr: Optional[np.ndarray] = None
         self._window_built = False
+        self._max_blocks: Optional[int] = None
         self.generator = torch.Generator().manual_seed(
             int(getattr(config.trainer, "seed", 0)))
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
@@ -304,6 +308,8 @@ class NeuralMap:
         if frame is None or not bool(getattr(self.config.model,
                                              "tsdf_frustum_window", True)):
             return None
+        if isinstance(self.tsdf_vol, tsdf.TSDFVolumeBM):
+            return None  # block volumes take frustum-exact sparse updates
         intr = np.asarray(frame["intr_mat"], np.float32)
         hw = np.asarray(frame["depth"]).shape
         shape = tuple(self.tsdf_vol.sdf.shape)
@@ -315,8 +321,9 @@ class NeuralMap:
         return window
 
     def _check_window_intr(self, frames):
-        """Drop the frustum window if intrinsics drift from the ones it was
-        sized for."""
+        """Drop the frustum window if intrinsics drift from the ones it (or
+        the block budget) was sized for; the block budget is sized again
+        from the next frame."""
         if self._window_intr is None:
             return
         for f in frames:
@@ -326,16 +333,36 @@ class NeuralMap:
                                self._window_intr[1, 1]):
                 self._window_intr = None
                 self._window = None
+                self._max_blocks = None
                 return
+
+    def _tsdf_max_blocks(self, frame0) -> Optional[int]:
+        """Active-block budget of the block-major prior, sized from this
+        frame's intrinsics (``tsdf.frustum_max_blocks``); drift is guarded
+        like the window's."""
+        if not isinstance(self.tsdf_vol, tsdf.TSDFVolumeBM):
+            return None
+        intr = np.asarray(frame0["intr_mat"], np.float32)
+        self._window_intr = intr
+        return tsdf.frustum_max_blocks(
+            intr, np.asarray(frame0["depth"]).shape, self.ray_max_dist,
+            self.tsdf_voxel_size, self.tsdf_vol.nb_xyz)
 
     def _ensure_window(self, frame0):
         if not self._window_built:
             self._window = self._tsdf_window_for(frame0)
             self._window_built = True
+        if self._max_blocks is None:
+            self._max_blocks = self._tsdf_max_blocks(frame0)
 
     def _integrate_prior(self, depth, T_wc, intr, obs_weight: float = 1.0,
                          rgb=None):
-        if self._window is not None:
+        if self._max_blocks is not None:
+            tsdf.integrate_blocks(self.tsdf_vol, depth, intr, T_wc,
+                                  self.tsdf_voxel_size, self._max_blocks,
+                                  self.ray_max_dist, obs_weight=obs_weight,
+                                  rgb=rgb)
+        elif self._window is not None:
             tsdf.integrate_windowed(self.tsdf_vol, depth, intr, T_wc,
                                     self.tsdf_voxel_size, self._window,
                                     self.ray_max_dist, obs_weight=obs_weight,
@@ -744,10 +771,13 @@ class NeuralMap:
         in-line build would.  The slot keys come to the host here, on the
         caller's thread: a copy issued from the worker would queue behind
         the optimize launches.  The worker runs numpy and the native
-        lattice builder only.  A no-op with ``model.mesh_prefetch=false``
-        or when a prefetch of this fuse epoch exists."""
+        lattice builder only.  A no-op with ``model.mesh_prefetch=false``,
+        when a prefetch of this fuse epoch exists, or on a table without
+        ``slot_flat`` (a block table: ``extract_mesh`` builds in line), as
+        in the JAX package."""
         m = self.config.model
-        if not bool(getattr(m, "mesh_prefetch", True)):
+        if not bool(getattr(m, "mesh_prefetch", True)) or \
+                not hasattr(self.table, "slot_flat"):
             return
         scale = int(getattr(m, "mesh_lattice_scale", 2))
         pf = self._mesh_prefetch
@@ -850,40 +880,51 @@ class NeuralMap:
             mesh = mesh._replace(colors=colors.cpu().numpy())
         return mesh
 
-    def _inc_changed_mask(self):
-        """(latent-change mask [n] bool on the host, device snapshot).
+    def _inc_changed_mask(self, slots: np.ndarray):
+        """(latent-change mask [len(slots)] bool on the host, device
+        snapshot) over the slot ids ``active_entries`` returned.
 
-        The table's (weights, num_hits, features) rows are diffed on the
-        device against the snapshot of the last committed event and only
-        the mask is fetched.  Fusion and optimization write the table in
-        place, so the snapshot holds clones of rows [:n_alloc], never
-        references.  The mask is all True at the first call and for rows
-        allocated since the snapshot (a new voxel flips its corners'
-        decode sentinel even where its values match).  The caller commits
-        the snapshot once the mesher's update has succeeded."""
+        The table's (weights, num_hits, features) rows at those slots are
+        diffed on the device against the snapshot of the last committed
+        event and only the mask is fetched.  Fusion and optimization write
+        the table in place, so the snapshot holds clones of the rows that
+        can carry state (rows [:n_alloc] of a dense table, the allocated
+        blocks' [:n_alloc * 64] of a block table), never references.  The
+        mask is all True at the first call and for slots past the snapshot
+        (a new voxel flips its corners' decode sentinel even where its
+        values match).  The caller commits the snapshot once the mesher's
+        update has succeeded.  (The JAX package diffs rows [:n_alloc] on a
+        block table too, where n_alloc counts blocks: a mask of the wrong
+        length, ROADMAP Queue 3.)"""
         t = self.table
         n = int(t.n_alloc)
+        if isinstance(t, table_blocks.BlockIndexedTable):
+            n *= table_blocks.BLOCK_SLOTS
         rows = (t.weights[:n], t.num_hits[:n], t.features[:n])
         snap = tuple(r.clone() for r in rows)
         prev = self._inc_prev
         if prev is None:
-            return np.ones(n, bool), snap
-        k = min(n, prev[0].shape[0])
-        changed = torch.ones(n, dtype=torch.bool, device=self.device)
-        changed[:k] = ((rows[0][:k] != prev[0][:k]) |
-                       (rows[1][:k] != prev[1][:k]) |
-                       (rows[2][:k] != prev[2][:k]).any(dim=-1))
+            return np.ones(len(slots), bool), snap
+        s = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        k = prev[0].shape[0]
+        sp = torch.clamp(s, max=max(k - 1, 0))
+        changed = torch.ones(len(slots), dtype=torch.bool, device=self.device)
+        if k:
+            changed = (s >= k) | (rows[0][s] != prev[0][sp]) | \
+                (rows[1][s] != prev[1][sp]) | \
+                (rows[2][s] != prev[2][sp]).any(dim=-1)
         return changed.cpu().numpy(), snap
 
     def incremental_mesh_inputs(self):
         """What the incremental mesher reads: (decode_fn, active voxel keys
         [n, 3] int32 in slot order, their ``_mesh_weights``, the prior in
-        decode units on the host)."""
+        decode units on the host, their slot ids)."""
         decode, sdf_delta = self._mesh_decoder(True)
-        keys, _, weights, hits, _ = tbl.active_entries(self.table,
-                                                       with_features=False)
+        keys, _, weights, hits, slots = tbl.active_entries(
+            self.table, with_features=False)
         return (decode, keys.astype(np.int32),
-                self._mesh_weights(weights, hits), sdf_delta.cpu().numpy())
+                self._mesh_weights(weights, hits), sdf_delta.cpu().numpy(),
+                slots)
 
     def extract_mesh_incremental(self) -> Optional[mesh_mod.Mesh]:
         """Demo-mode mesh: only voxels whose latents or TSDF-prior cells
@@ -903,8 +944,8 @@ class NeuralMap:
                 delta_tol=float(getattr(self.config.model,
                                         "incremental_delta_tol", 0.0)),
                 device=self.device)
-        changed_rows, snap = self._inc_changed_mask()
-        decode, keys, weights, delta = self.incremental_mesh_inputs()
+        decode, keys, weights, delta, slots = self.incremental_mesh_inputs()
+        changed_rows, snap = self._inc_changed_mask(slots)
         mesh = self.inc_mesher.update(
             decode, keys, weights, None, min_weight=self.min_pts_in_grid,
             sdf_delta=delta, changed_rows=changed_rows)
@@ -924,7 +965,8 @@ class NeuralMap:
             "voxel_size": np.float32(self.voxel_size),
         })
         np.save(path_prefix + "_tsdf.npy",
-                self.tsdf_vol.sdf.cpu().numpy() * (self.tsdf_voxel_size * 5))
+                tsdf.as_dense(self.tsdf_vol).sdf.cpu().numpy() *
+                (self.tsdf_voxel_size * 5))
 
     def load_volume(self, path: str):
         """Replace the table by the entries of a saved
@@ -937,16 +979,26 @@ class NeuralMap:
         # even where the counts match (the JAX package does not bump here)
         self._fuse_epoch += 1
 
+    def prior_shape(self) -> tuple:
+        """The prior's dense grid shape [X, Y, Z], in either layout."""
+        vol = self.tsdf_vol
+        return (tuple(vol.vol_dim) if isinstance(vol, tsdf.TSDFVolumeBM)
+                else tuple(vol.sdf.shape))
+
     def set_tsdf_prior(self, metric: np.ndarray):
-        """Install a metric TSDF prior of the volume's shape (normalized by
-        tsdf_voxel_size * 5, weight 1 everywhere)."""
+        """Install a dense metric TSDF prior of the volume's grid shape
+        (normalized by tsdf_voxel_size * 5, weight 1 everywhere); a
+        block-major volume stores it through ``tsdf.dense_to_bm``."""
         normalized = np.asarray(metric, np.float32) / \
             np.float32(self.tsdf_voxel_size * 5.0)
-        if normalized.shape != tuple(self.tsdf_vol.sdf.shape):
+        if normalized.shape != self.prior_shape():
             raise ValueError(
                 f"tsdf prior shape {normalized.shape} != volume "
-                f"{tuple(self.tsdf_vol.sdf.shape)}")
-        self.tsdf_vol.sdf = torch.as_tensor(normalized, device=self.device)
+                f"{self.prior_shape()}")
+        sdf = torch.as_tensor(normalized, device=self.device)
+        if isinstance(self.tsdf_vol, tsdf.TSDFVolumeBM):
+            sdf = tsdf.dense_to_bm(self.tsdf_vol, sdf)
+        self.tsdf_vol.sdf = sdf
         self.tsdf_vol.weight = torch.ones_like(self.tsdf_vol.weight)
 
     def load_map(self, path_prefix: str):

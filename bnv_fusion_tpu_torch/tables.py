@@ -1,44 +1,64 @@
-"""Sparse voxel table facade, dense slot map only.
+"""Facade over the three sparse voxel tables.
 
-Counterpart of bnv_fusion_tpu/tables.py:45-106.  The JAX package routes big
-scenes to block tables and unbounded ones to a hash table; those layouts are
-not ported yet (ROADMAP Queue 1 item 13), so routing to them raises, and so
-does every facade call on a table of another kind.
+Counterpart of bnv_fusion_tpu/tables.py:45-106 (``replicated_spec`` is
+``shard_map``'s and belongs to ROADMAP Queue 1 item 14).
+
+* ``DenseIndexedTable`` (table_dense.py): a dense int32 slot map over the
+  scene grid; every scene whose voxel count fits the map's memory.
+* ``BlockIndexedTable`` (table_blocks.py): big scenes; the slot map at
+  4^3-block granularity, up to the int32 flat-id ceiling (2^31 voxels).
+* ``SparseVoxelTable`` (table.py): an open-addressing hash for unbounded
+  scenes (no ``n_xyz``); never routed to when bounds are known.
+
+Routing as in the JAX package: dense below DENSE_MAP_MAX_VOXELS, blocks
+(with 4x the capacity) below 2^31 voxels, ``ValueError`` beyond.  Every
+table is updated in place; dispatch is by type.
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
+from bnv_fusion_tpu_torch import table as _hash
+from bnv_fusion_tpu_torch import table_blocks as _blocks
 from bnv_fusion_tpu_torch import table_dense as _dense
 
-AnyTable = _dense.DenseIndexedTable
+AnyTable = Union[_hash.SparseVoxelTable, _dense.DenseIndexedTable,
+                 _blocks.BlockIndexedTable]
 
-# dense slot maps beyond this many voxels route to block tables in the JAX
-# package (tables.py:42)
+# dense slot maps beyond this many voxels switch to block granularity (the
+# limit guards memory: 512M * 4 B = 2 GB of map)
 DENSE_MAP_MAX_VOXELS = 512 * 1024 * 1024
 
 
 def create_table(feat_dims: int, capacity: int, n_xyz=None,
                  device: torch.device | str = "cpu") -> AnyTable:
     if n_xyz is None:
-        raise NotImplementedError(
-            "unbounded scenes need the hash table, which is not ported yet "
-            "(ROADMAP Queue 1 item 13)")
+        return _hash.create_table(capacity, feat_dims, device)
     n_vox = int(n_xyz[0]) * int(n_xyz[1]) * int(n_xyz[2])
-    if n_vox >= DENSE_MAP_MAX_VOXELS:
-        raise NotImplementedError(
-            f"a grid of {n_vox} voxels needs the block table, which is not "
-            "ported yet (ROADMAP Queue 1 item 13)")
-    return _dense.create_dense_table(n_xyz, capacity, feat_dims, device)
+    if n_vox < DENSE_MAP_MAX_VOXELS:
+        return _dense.create_dense_table(n_xyz, capacity, feat_dims, device)
+    # capacity counts voxels; a surface crossing a 4^3 block touches ~1/4
+    # of its 64 slots, so block tables get 4x the slots (raises at 2^31)
+    return _blocks.create_block_table(n_xyz, capacity * 4, feat_dims, device)
 
 
-def _mod(table):
+def _mod(table: AnyTable):
     if isinstance(table, _dense.DenseIndexedTable):
         return _dense
-    raise NotImplementedError(
-        f"{type(table).__name__}: only the dense slot-map table is ported "
-        "(ROADMAP Queue 1 item 13)")
+    if isinstance(table, _blocks.BlockIndexedTable):
+        return _blocks
+    return _hash
+
+
+def _slot_map_mod(table: AnyTable, what: str):
+    mod = _mod(table)
+    if mod is _hash:
+        raise TypeError(f"{what} takes a slot-map table (dense or blocks), "
+                        "not the hash table")
+    return mod
 
 
 def insert(table: AnyTable, keys: torch.Tensor, valid: torch.Tensor):
@@ -50,6 +70,13 @@ def insert(table: AnyTable, keys: torch.Tensor, valid: torch.Tensor):
 def lookup(table: AnyTable, query: torch.Tensor,
            valid: torch.Tensor | None = None):
     return _mod(table).lookup(table, query, valid)
+
+
+def lookup_coords3(table: AnyTable, cx, cy, cz, inside):
+    """``lookup`` on per-axis coordinate tensors of any (equal) shape; the
+    slot-map tables (dense, blocks) only."""
+    return _slot_map_mod(table, "lookup_coords3").lookup_coords3(
+        table, cx, cy, cz, inside)
 
 
 def gather_values(table: AnyTable, slots, found):
@@ -67,14 +94,18 @@ def active_entries(table: AnyTable, with_features: bool = True):
 def insert_unique_flat(table: AnyTable, flat: torch.Tensor,
                        valid: torch.Tensor):
     """Insert-or-find precomputed voxel flat ids (sort-reduce fuse hot
-    path), in place -> (slots, ok)."""
-    return _mod(table).insert_unique_flat(table, flat, valid)
+    path), in place -> (slots, ok); the slot-map tables only."""
+    return _slot_map_mod(table, "insert_unique_flat").insert_unique_flat(
+        table, flat, valid)
 
 
 def load_entries(like: AnyTable, coords, features, weights, num_hits
                  ) -> AnyTable:
     """Rebuild a table of the same kind, shape and device as ``like`` from
     saved entries."""
+    if isinstance(like, _hash.SparseVoxelTable):
+        return _hash.load_entries(like.capacity, coords, features, weights,
+                                  num_hits, device=like.device)
     return _mod(like).load_entries(like.n_xyz, like.capacity, coords,
                                    features, weights, num_hits,
                                    device=like.device)

@@ -105,7 +105,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
      fuse_batch_merge=false, fuse_algorithm=corner) against the default
      fuse of one K=16 batch, with its seg-reduce launches and peak device
      memory, the per-frame routes also through a float64-cumsum copy, and
-     K=32 in 2 front chunks; the stage-1 sort's two formulations timed.
+     K=32 in 2 front chunks; the stage-1 sort's two formulations timed;
+ 10. bigscene: profiling/profile_bigscene.py's 14 x 14 x 4 m scene at
+     voxel 0.01 (790.2M voxels): the e2e phase's 48 frames written in the
+     canonical layout with those dimensions, through run_inference scene3d
+     --mode e2e at the e2e phase's overrides (counts zeroed just before,
+     read just after): the table routed to BlockIndexedTable and the prior
+     to TSDFVolumeBM, seg_reduce_sorted launched twice per K-batch and
+     fused_corner_decode at least once, table and prior overflow 0, finite
+     losses, a non-empty binary final.ply.  Then at that size: the run's
+     first K=16 batch through the merged fuse into a block table and into
+     a dense table of the same grid (a 3.2 GB slot map), equal by key bit
+     for bit; the run's prior frames through integrate_blocks and the
+     dense windowed integrate, within BIG_PRIOR_ATOL on all but
+     BIG_EDGE_SHARE of the voxels (integrate_blocks timed, its active
+     blocks counted); the hash table at profiling/probe_hash_table.py's
+     point (2^17 keys, 2^19 slots) equal to the CPU port's slot for slot
+     with both probe strategies, timed, with its probe rounds; one frame
+     fused into a 2^21-slot hash table against the dense table's kernel
+     front within HASH_FUSE_ATOL by key.
 The e2e phase also holds the final mesh's optimize-overlapped lattice
 prefetch: a re-extraction through it launches the decode and equals the
 in-line build (model.mesh_prefetch=false) bit for bit; both are timed,
@@ -1221,7 +1239,7 @@ def check_cache(nmap, when: str) -> dict:
     inc = nmap.extract_mesh_incremental()
     t_inc = time.time() - t0
     st = dict(nmap.inc_mesher.last_stats)
-    decode, keys, weights, delta = nmap.incremental_mesh_inputs()
+    decode, keys, weights, delta, _ = nmap.incremental_mesh_inputs()
     fresh = IncrementalMesher(nmap.bound_min.cpu().numpy(), nmap.voxel_size,
                               n_xyz=np.asarray(nmap.n_xyz),
                               device=nmap.device)
@@ -2054,6 +2072,316 @@ def phase_options(tmp, params):
     check_sdf_gradient(nmap, out["final"])
 
 
+# the bigscene phase: profiling/profile_bigscene.py's scene (:35-48), 14 x
+# 14 x 4 m at voxel 0.01 = 1402 x 1402 x 402 = 790.2M voxels, which routes
+# the table to blocks and the prior (562 x 562 x 162 at 0.025) to the
+# block-major volume; the e2e phase's 48 frames in its canonical layout
+BIG_DIMS = (14.0, 14.0, 4.0)
+# the prior through integrate_blocks against the dense windowed integrate:
+# sdf within BIG_PRIOR_ATOL on all but BIG_EDGE_SHARE of the voxels (a voxel
+# that projects within float noise of a pixel's edge can sample the other
+# pixel in the two layouts' differently shaped products; the CPU tests'
+# bound, tests/test_torch_tsdf_blocks.py)
+BIG_PRIOR_ATOL = 1e-6
+BIG_EDGE_SHARE = 1e-3
+# the hash table at profiling/probe_hash_table.py's point (2^17 keys drawn
+# from [0, 200)^3 into 2^19 slots), and one 480x640 frame fused into 2^21
+# slots against the dense table's kernel front (direct sums on both sides;
+# the hash path's scatter-adds sum in no fixed order)
+HASH_KEYS, HASH_SLOTS = 1 << 17, 1 << 19
+HASH_FUSE_SLOTS = 1 << 21
+HASH_FUSE_ATOL = 1e-5
+HASH_REPS = 5
+
+
+def live_by_key(table):
+    """(keys, features, weights, hits) of a table's entries carrying state,
+    sorted by key."""
+    import numpy as np
+    from bnv_fusion_tpu_torch import tables as tbl
+
+    keys, feats, w, h, _ = tbl.active_entries(table)
+    live = (w > 0) | (h > 0)
+    order = np.lexsort(keys[live].T[::-1])
+    return tuple(a[live][order] for a in (keys, feats, w, h))
+
+
+def probe_rounds(keys, slots, found, capacity: int) -> int:
+    """Probe rounds the insert needed: the largest i with slot = (h0 + i *
+    stride) mod capacity over the found keys, plus one (the odd stride is
+    inverted mod the power-of-two capacity by Newton steps)."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import table as hash_table
+
+    k = torch.as_tensor(keys)
+    h0 = hash_table._hash_coords(k, capacity).numpy()
+    s = hash_table._probe_stride(k, capacity).numpy()
+    inv = s.copy()
+    for _ in range(5):
+        inv = (inv * (2 - s * inv)) % capacity
+    i = ((np.asarray(slots) - h0) % capacity) * inv % capacity
+    return int(i[np.asarray(found)].max()) + 1
+
+
+def phase_bigscene(tmp, params, card):
+    """The big-scene layouts on the card: run_inference --mode e2e on the
+    790M-voxel scene, the block table and block-major prior against the
+    dense ones at that size, and the hash table against the CPU port."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import fusion, run_e2e, table_dense, tsdf
+    from bnv_fusion_tpu_torch import table as hash_table
+    from bnv_fusion_tpu_torch import tables as tbl
+    from bnv_fusion_tpu_torch import voxel as vx
+    from bnv_fusion_tpu_torch.checkpoint import save_state
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.datasets import get_dataset
+    from bnv_fusion_tpu_torch.kernels import _build
+    from bnv_fusion_tpu_torch.pipeline import _frame_points
+    from bnv_fusion_tpu_torch.scripts import run_inference
+    from bnv_fusion_tpu_torch.scripts import generate_fusion_data as gen
+    from bnv_fusion_tpu_torch.table_blocks import BlockIndexedTable
+
+    def step(msg, t0):
+        print(f"  {msg} ({time.time() - t0:.1f} s; {card})", flush=True)
+
+    # 1. the e2e phase's frames in the canonical layout, dimensions 14 14 4
+    t0 = time.time()
+    os.makedirs(tmp, exist_ok=True)
+    weights = os.path.join(tmp, "weights.npz")
+    save_state(weights, {"params": {
+        n: {k: v.detach().cpu().numpy() for k, v in p.items()}
+        for n, p in params.items()}})
+    synth_cfg = load_config(E2E_OVERRIDES)
+    synth = get_dataset(synth_cfg, "val")
+    canon = os.path.join(tmp, "canon")
+    gen.write_canonical(
+        os.path.join(canon, "scene"),
+        [(None, f["depth_raw"], f["T_wc"], f["intr_mat"])
+         for f in (synth[i] for i in range(len(synth)))],
+        np.asarray(BIG_DIMS, np.float32))
+    step(f"{len(synth)} frames written in the canonical layout, "
+         f"dimensions {BIG_DIMS}", t0)
+
+    # 2. run_inference --mode e2e at the e2e phase's overrides
+    out_dir = os.path.join(tmp, "run")
+    extra = ["dataset.skip_images=1"] + E2E_OVERRIDES + [
+        f"model.ray_tracer.ray_max_dist="
+        f"{synth_cfg.model.ray_tracer.ray_max_dist}",
+        f"output_dir={out_dir}"]
+    results, undo = recording(run_e2e)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    t0 = time.time()
+    try:
+        rc = run_inference.main([
+            "scene3d", "--seqs", "scene", "--checkpoint", weights,
+            "--data_dir", canon, "--min_pts_in_grid",
+            str(synth_cfg.model.min_pts_in_grid), "--mode", "e2e",
+            "--extra"] + extra)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0 or len(results) != 1:
+        raise AssertionError(f"run_inference --mode e2e rc {rc}")
+    res = results[0][1]
+    nmap = res["nmap"]
+    table, vol = nmap.table, nmap.tsdf_vol
+    print(f"  grid {nmap.n_xyz} = {table.n_voxels / 1e6:.1f}M voxels: "
+          f"{type(table).__name__}, prior {type(vol).__name__}", flush=True)
+    if not isinstance(table, BlockIndexedTable) or \
+            not isinstance(vol, tsdf.TSDFVolumeBM):
+        raise AssertionError("the 790M-voxel scene did not route to the "
+                             "block table and the block-major prior")
+    # two seg-reduce launches per K-batch
+    k = int(nmap.config.model.integrate_batch_size)
+    print(f"  launches in the bigscene run: {launches}", flush=True)
+    if launches.get("seg_reduce_sorted", 0) != \
+            2 * -(-len(nmap.frames) // k) or \
+            launches.get("fused_corner_decode", 0) <= 0:
+        raise AssertionError(f"bigscene launches {launches}")
+    losses = np.asarray(nmap.optimize_losses, np.float64)
+    if nmap.overflow != 0 or int(vol.overflow) != 0 or \
+            not np.all(np.isfinite(losses)) or \
+            len(losses) != res["global_steps"]:
+        raise AssertionError(f"bigscene: table overflow {nmap.overflow}, "
+                             f"prior overflow {int(vol.overflow)}, losses "
+                             f"{losses}")
+    final_path = os.path.join(out_dir, "run_e2e", "scene", "final.ply")
+    head, n_v, n_f = read_ply_header(final_path)
+    if "binary_little_endian" not in head or n_v <= 0 or n_f <= 0:
+        raise AssertionError(f"bigscene final.ply: {n_v} vertices, {n_f} "
+                             "faces")
+    tm = nmap.timer.times
+    n_frames = len(nmap.frames)
+    n_live = int(tbl.occupancy(table))
+    print(f"  block table: {table.n_blocks} blocks "
+          f"({table.n_blocks * 4 / 1e6:.1f} MB map), {table.capacity} slots "
+          f"({table.capacity * (table.feat_dims + 2) * 4 / 1e6:.0f} MB of "
+          f"values); {int(table.n_alloc)} blocks allocated, {n_live} live "
+          f"voxels; {card}", flush=True)
+    print(f"  prior: {vol.vol_dim} voxels in {vol.nb_xyz} blocks of 64 "
+          f"({vol.sdf.numel() * 8 / 1e6:.0f} MB); block budget "
+          f"{nmap._max_blocks} per frame", flush=True)
+    step(f"run_inference --mode e2e: local fusion "
+         f"{n_frames / tm['local']:.2f} frames/s ({n_frames} frames in "
+         f"{tm['local']:.2f} s), optimize "
+         f"{tm['global'] / res['global_steps']:.4f} s/iter, mesh "
+         f"{tm['mesh']:.2f} s, peak {peak / 2 ** 30:.2f} GiB, wall "
+         f"{wall:.1f} s; final.ply {n_v} vertices, overflow 0/0", t0)
+
+    # 3. the block layouts against the dense ones at this size: the first
+    # K=16 batch of the run's own staged frames through the merged fuse
+    # into a block table and a dense table of the same grid (a 3.2 GB slot
+    # map), and the run's prior frames through both prior layouts
+    t0 = time.time()
+    cfg = nmap.config.model
+    batch = nmap.frames[:16]
+    pts = [_frame_points(f["depth"], f["T_wc"], f["intr"]) for f in batch]
+    pw, nw, va = (torch.stack([p[j] for p in pts]) for j in range(3))
+    del pts
+    mu, muc = nmap._width_values()
+    fuse_kw = dict(max_unique=mu, max_unique_cells=muc,
+                   max_unique_batch=nmap._mu_batch, seg_kernel=True,
+                   sort_bf16=bool(getattr(cfg, "fuse_sort_bf16", False)))
+    cap = int(getattr(cfg, "table_capacity", 1 << 21))
+    tb = tbl.create_table(nmap.feat_dims, cap, n_xyz=nmap.n_xyz,
+                          device=nmap.device)
+    td = table_dense.create_dense_table(nmap.n_xyz, cap, nmap.feat_dims,
+                                        nmap.device)
+    for t in (tb, td):
+        fusion.fuse_frames_merged(t, nmap.params, pw, nw, va,
+                                  nmap.bound_min, nmap.bound_max,
+                                  nmap.voxel_size, nmap.min_pts_in_grid,
+                                  **fuse_kw)
+    if not isinstance(tb, BlockIndexedTable) or tb.overflow or td.overflow:
+        raise AssertionError("the K=16 batch: block table not routed or "
+                             "overflowed")
+    same_table("block table vs dense table", live_by_key(tb),
+               live_by_key(td))
+    n_cmp = len(live_by_key(tb)[0])
+    del tb, td, pw, nw, va
+    torch.cuda.empty_cache()
+    tvs = nmap.tsdf_voxel_size
+    every = int(getattr(cfg, "tsdf_every", 1))
+    vb, _ = tsdf.create_tsdf_volume_bm(nmap.dimensions, tvs,
+                                       device=nmap.device)
+    vd, _ = tsdf.create_tsdf_volume(nmap.dimensions, tvs, device=nmap.device)
+    f0 = nmap.frames[0]
+    intr0 = f0["intr"].cpu().numpy()
+    hw = tuple(f0["depth"].shape)
+    mb = tsdf.frustum_max_blocks(intr0, hw, nmap.ray_max_dist, tvs,
+                                 vb.nb_xyz)
+    window = tsdf.frustum_window_shape(intr0, hw, nmap.ray_max_dist, tvs,
+                                       tuple(vd.sdf.shape))
+    ms, active = [], []
+    for f in nmap.frames[::every]:
+        active.append(int(tsdf.frustum_blocks(
+            vb, hw, f["intr"], torch.linalg.inv(f["T_wc"]), tvs,
+            nmap.ray_max_dist).sum()))
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        tsdf.integrate_blocks(vb, f["depth"], f["intr"], f["T_wc"], tvs, mb,
+                              nmap.ray_max_dist, obs_weight=float(every))
+        e_ev.record()
+        tsdf.integrate_windowed(vd, f["depth"], f["intr"], f["T_wc"], tvs,
+                                window, nmap.ray_max_dist,
+                                obs_weight=float(every))
+        torch.cuda.synchronize()
+        ms.append(s_ev.elapsed_time(e_ev))
+    if int(vb.overflow) != 0:
+        raise AssertionError(f"integrate_blocks overflow {int(vb.overflow)}")
+    w_far = (tsdf.bm_to_dense(vb, "weight") != vd.weight).float().mean()
+    d = (tsdf.bm_to_dense(vb, "sdf") - vd.sdf).abs()
+    d_far = (d > BIG_PRIOR_ATOL).float().mean()
+    if float(w_far) > BIG_EDGE_SHARE or float(d_far) > BIG_EDGE_SHARE:
+        raise AssertionError(f"block-major prior vs dense: weights differ on "
+                             f"{float(w_far):.2e}, sdf beyond "
+                             f"{BIG_PRIOR_ATOL} on {float(d_far):.2e}")
+    print(f"  block table == dense table ({table.n_voxels / 1e6:.1f}M-voxel "
+          f"grid, K={len(batch)} batch): {n_cmp} live voxels bit for bit",
+          flush=True)
+    print(f"  integrate_blocks: {np.median(ms):.3f} ms per frame (median of "
+          f"{len(ms)}; range {min(ms):.3f}-{max(ms):.3f}), active blocks per "
+          f"frame median {int(np.median(active))} max {max(active)} of the "
+          f"budget {mb}; vs the dense windowed prior: max |sdf| diff "
+          f"{float(d.max()):.3e}, share beyond {BIG_PRIOR_ATOL} "
+          f"{float(d_far):.2e}, weights differ on {float(w_far):.2e}; "
+          f"{card}", flush=True)
+    del vb, vd, d
+    torch.cuda.empty_cache()
+    step("layouts held against the dense ones", t0)
+
+    # 4. the hash table: probe_hash_table.py's point on the card against
+    # the CPU port, slot for slot, both probe strategies; then one frame
+    # fused into a hash table against the dense table's kernel front
+    t0 = time.time()
+    keys = np.random.RandomState(0).randint(0, 200, size=(HASH_KEYS, 3)) \
+        .astype(np.int32)
+    kd = torch.as_tensor(keys, device=nmap.device)
+    ones = torch.ones(HASH_KEYS, dtype=torch.bool, device=nmap.device)
+    for unroll in (False, True):
+        name = "unrolled" if unroll else "early exit"
+        ref = hash_table.create_table(HASH_SLOTS, 8)
+        rs, rok = hash_table.insert(ref, torch.as_tensor(keys),
+                                    ones.cpu(), unroll=unroll)
+        ht = hash_table.create_table(HASH_SLOTS, 8, nmap.device)
+        gs, gok = hash_table.insert(ht, kd, ones, unroll=unroll)
+        ls, lf = hash_table.lookup(ht, kd, unroll=unroll)
+        if not (torch.equal(gs.cpu(), rs) and torch.equal(gok.cpu(), rok) and
+                torch.equal(ht.keys.cpu(), ref.keys) and
+                torch.equal(ls.cpu(), rs) and bool(lf.all()) and
+                int(ht.overflow) == int(ref.overflow) == 0):
+            raise AssertionError(f"hash table ({name}): the card's slots "
+                                 "differ from the CPU port's")
+
+        def fresh_insert():
+            hash_table.insert(hash_table.create_table(HASH_SLOTS, 8,
+                                                      nmap.device),
+                              kd, ones, unroll=unroll)
+
+        ins_ms = median_ms(fresh_insert, reps=HASH_REPS, warmup=1)
+        look_ms = median_ms(lambda: hash_table.lookup(ht, kd, unroll=unroll),
+                            reps=HASH_REPS, warmup=1)
+        print(f"  hash {name}: {HASH_KEYS} keys ({int(gok.sum())} found, "
+              f"{int(hash_table.occupancy(ht))} distinct) into {HASH_SLOTS} "
+              f"slots == the CPU port's slot for slot; insert {ins_ms:.3f} "
+              f"ms (table creation included), lookup {look_ms:.3f} ms, "
+              f"probe rounds {probe_rounds(keys, rs, rok, HASH_SLOTS)}; "
+              f"{card}", flush=True)
+    smin, smax, sn = vx.get_world_range(synth.dimensions, VOXEL)
+    bmin = torch.as_tensor(smin, device=nmap.device)
+    bmax = torch.as_tensor(smax, device=nmap.device)
+    f = nmap.frames[0]
+    pw, nw, va = _frame_points(f["depth"], f["T_wc"], f["intr"])
+    ht = tbl.create_table(nmap.feat_dims, HASH_FUSE_SLOTS,
+                          device=nmap.device)
+    fusion.fuse_frame(ht, nmap.params, pw, nw, va, bmin, bmax, VOXEL,
+                      nmap.min_pts_in_grid)
+    td = table_dense.create_dense_table(sn, 1 << 21, nmap.feat_dims,
+                                        nmap.device)
+    fusion.fuse_frames_merged(td, nmap.params, pw[None], nw[None], va[None],
+                              bmin, bmax, VOXEL, nmap.min_pts_in_grid,
+                              max_unique=mu, max_unique_cells=muc,
+                              seg_kernel=True)
+    if int(ht.overflow) or int(td.overflow):
+        raise AssertionError(f"hash fuse: overflow {int(ht.overflow)} (hash), "
+                             f"{int(td.overflow)} (dense)")
+    err = same_table("hash fuse_frame vs dense", live_by_key(ht),
+                     live_by_key(td), atol=HASH_FUSE_ATOL)
+    step(f"hash fuse_frame of one {hw[0]}x{hw[1]} frame into "
+         f"{HASH_FUSE_SLOTS} "
+         f"slots == the dense table by key ({len(live_by_key(ht)[0])} live "
+         f"voxels, features max abs diff {err:.3e})", t0)
+    del res, nmap, results
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bnv_fusion_tpu_torch")):
         return fail("bnv_fusion_tpu_torch/ not found beside chip_smoke.py; "
@@ -2188,6 +2516,13 @@ def main() -> int:
         t0 = time.time()
         phase_fuse(params, card)
         print(f"phase fuse: {time.time() - t0:.1f} s", flush=True)
+
+        print("phase bigscene: the 790M-voxel scene through run_inference, "
+              "the big-scene layouts against the dense ones, the hash table",
+              flush=True)
+        t0 = time.time()
+        phase_bigscene(os.path.join(tmp, "bigscene"), params, card)
+        print(f"phase bigscene: {time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

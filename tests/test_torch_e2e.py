@@ -185,7 +185,7 @@ def test_cuda_device_type_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("override,item", [
     ("trainer.fuse_devices=2", 14), ("trainer.optimize_devices=2", 14),
-    ("model.tsdf_layout=blocks", 13), ("model.table_layout=spatial", 14)])
+    ("trainer.pretrain_devices=2", 14), ("model.table_layout=spatial", 14)])
 def test_unsupported_options_raise(override, item):
     cfg = tload_config(OVERRIDES + ["device_type=cpu", override])
     with pytest.raises(NotImplementedError,
@@ -257,8 +257,9 @@ def test_port_runs_without_jax():
     """Import the port and fuse a tiny frame in a fresh interpreter where
     importing jax (or flax/optax/sklearn/yaml/cv2/PIL/imageio/torchvision/
     open3d/trimesh/the JAX package) fails; import every reader, the codec,
-    the profiling tools and the six scripts, and read a canonical frame
-    with its colour that the port itself wrote."""
+    the profiling tools and the six scripts, read a canonical frame with
+    its colour that the port itself wrote, and fuse and mesh on the block
+    table and block-major prior and fuse into the hash table."""
     code = r"""
 import builtins, os, sys
 blocked = ("jax", "jaxlib", "flax", "optax", "sklearn", "yaml", "cv2",
@@ -354,6 +355,24 @@ ccfg = load_config(["dataset=fusion_inference_dataset", f"data_dir={tmp}",
                     "dataset.scan_id=scene", "dataset.load_color=true"])
 cf = get_dataset(ccfg, "val")[0]
 assert cf["rgb"].shape == (30, 40, 3) and cf["rgb"].std() > 1.0
+# the big-scene layouts: a block-major prior with a block table, and the
+# hash table of unbounded scenes
+from bnv_fusion_tpu_torch import table, table_blocks, tsdf
+bcfg = load_config(["device_type=cpu", "dataset.img_res=[30,40]",
+                    "dataset.num_images=2", "model.voxel_size=0.08",
+                    "model.min_pts_in_grid=0", "model.table_capacity=16384",
+                    "model.tsdf_layout=blocks"])
+tables.DENSE_MAP_MAX_VOXELS = 1000      # route this small grid to blocks
+bnm = NeuralMap(ods.dimensions, bcfg, nn.init_model(0))
+bnm.integrate_batch([ods[0], ods[1]])
+assert isinstance(bnm.table, table_blocks.BlockIndexedTable)
+assert isinstance(bnm.tsdf_vol, tsdf.TSDFVolumeBM)
+assert int(bnm.table.n_alloc) > 0 and bnm.extract_mesh() is not None
+hashed = tables.create_table(8, 1 << 14)
+fusion.fuse_frame(hashed, nn.init_model(0), pw, nw, va,
+                  t([-1.34, -1.34, -0.84]), t([1.34, 1.34, 0.84]), 0.04, 1)
+assert isinstance(hashed, table.SparseVoxelTable)
+assert int(tables.occupancy(hashed)) > 0
 assert not any(m.split(".")[0] in blocked for m in sys.modules)
 print("ok")
 """

@@ -189,13 +189,23 @@ def test_fuse_frame_dispatcher_matches_jax(scene, algorithm):
 
 def test_make_fuse_frame_fn_is_fuse_frame(scene):
     """The plain step make_fuse_frame_fn builds equals fuse_frame bit for
-    bit, and refuses a table of an unported layout."""
+    bit, on the dense table and on the hash table (fuse_frame's hash
+    branch)."""
     step = tfusion.make_fuse_frame_fn(VOXEL, MIN_PTS)
     a = _torch_table(scene, lambda tb, p, *r, **kw: step(tb, p, *r[:5]))
     b = _torch_table(scene, tfusion.fuse_frame, max_unique=1 << 19)
     _bits_equal(a, b)
-    with pytest.raises(NotImplementedError, match=r"item 13\)"):
-        step(object(), None, *([None] * 5))
+    t = torch.as_tensor
+    params = tnn.params_from_numpy(scene["params"])
+    hashed = []
+    for fn in (step, tfusion.fuse_frame):
+        table = ttables.create_table(8, CAP)
+        fn(table, params, t(scene["pw"][0]), t(scene["nw"][0]),
+           t(scene["va"][0]), t(scene["mn"]), t(scene["mx"]), *(
+               (VOXEL, MIN_PTS) if fn is tfusion.fuse_frame else ()))
+        hashed.append(_by_key(table, ttables.active_entries))
+    assert len(hashed[0][0]) > 1000
+    _bits_equal(*hashed)
 
 
 def test_sort1_gather_is_bit_identical(scene):

@@ -261,8 +261,11 @@ def test_sample_pdf_matches_jax():
 
 
 def test_create_table_routes_dense_only():
-    assert ttables.create_table(8, 16, n_xyz=(10, 10, 10)).n_voxels == 1000
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttables.create_table(8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttables.create_table(8, 16, n_xyz=(1024, 1024, 1024))
+    """Only grids below DENSE_MAP_MAX_VOXELS get the dense table; a bigger
+    one routes to blocks and no bounds to the hash table, as in the JAX
+    package (tests/test_torch_table_blocks.py holds the policy)."""
+    t = ttables.create_table(8, 16, n_xyz=(10, 10, 10))
+    assert t.n_voxels == 1000 and hasattr(t, "slot_map")
+    assert not hasattr(ttables.create_table(8, 16), "n_xyz")
+    big = ttables.create_table(8, 16, n_xyz=(1024, 1024, 1024))
+    assert not hasattr(big, "slot_map") and big.n_voxels == 1024 ** 3

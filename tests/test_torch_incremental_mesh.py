@@ -210,8 +210,8 @@ def _record_masks(nmap, out):
     """Wrap the map's change-mask method, keeping each mask it returns."""
     orig = nmap._inc_changed_mask
 
-    def wrapped():
-        res = orig()
+    def wrapped(*args):
+        res = orig(*args)
         out.append(np.array(res[0] if isinstance(res, tuple) else res))
         return res
 
@@ -306,7 +306,7 @@ def test_neural_map_incremental_matches_jax():
 
     # the cache equals one update of a fresh mesher on the same state:
     # the same triangles, the same welded face and vertex counts
-    decode, keys, weights, delta = tnm.incremental_mesh_inputs()
+    decode, keys, weights, delta, _ = tnm.incremental_mesh_inputs()
     fresh = IncrementalMesher(tnm.bound_min.numpy(), VS,
                               n_xyz=np.asarray(tnm.n_xyz))
     fm = fresh.update(decode, keys, weights, None, tnm.min_pts_in_grid,

@@ -116,10 +116,13 @@ def test_gather_values_and_load_entries_match_jax():
 
 
 def test_facade_refuses_other_layouts():
-    """Only the dense slot map is ported: the facade names item 13 for any
-    other table object."""
-    with pytest.raises(NotImplementedError, match=r"item 13\)"):
-        ttables.occupancy(object())
-    with pytest.raises(NotImplementedError, match=r"item 13\)"):
-        ttables.insert(object(), torch.zeros((1, 3), dtype=torch.int32),
-                       torch.ones(1, dtype=torch.bool))
+    """Flat ids and per-axis lookups belong to the slot-map tables (dense,
+    blocks): the facade refuses them on the hash table by name."""
+    hashed = ttables.create_table(4, 64)
+    with pytest.raises(TypeError, match="slot-map"):
+        ttables.insert_unique_flat(hashed, torch.zeros(1, dtype=torch.int64),
+                                   torch.ones(1, dtype=torch.bool))
+    zero = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(TypeError, match="slot-map"):
+        ttables.lookup_coords3(hashed, zero, zero, zero,
+                               torch.ones(2, dtype=torch.bool))
