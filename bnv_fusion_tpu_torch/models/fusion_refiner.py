@@ -22,6 +22,7 @@ from bnv_fusion_tpu_torch import mesh as mesh_mod
 from bnv_fusion_tpu_torch import tsdf as tsdf_mod
 from bnv_fusion_tpu_torch import voxel as vx
 from bnv_fusion_tpu_torch.models.registry import register
+from bnv_fusion_tpu_torch.parallel.launch import is_main_process
 from bnv_fusion_tpu_torch.pipeline import NeuralMap
 from bnv_fusion_tpu_torch.utils.logging import get_logger
 
@@ -105,7 +106,11 @@ class FusionRefiner:
 
         iters = iters_per_epoch or len(nmap.frames)
         mesh = None
-        os.makedirs(working_dir, exist_ok=True)
+        # under a process group every rank optimizes its replica
+        # (trainer.optimize_devices); rank 0 alone meshes and writes
+        main = is_main_process()
+        if main:
+            os.makedirs(working_dir, exist_ok=True)
         # the reference refiner sweeps every frame once per epoch in order;
         # "random" takes the online loop's i.i.d. draws instead
         order = str(getattr(cfg.model, "refine_frame_order", "epoch"))
@@ -113,11 +118,14 @@ class FusionRefiner:
             nmap.optimize(n_iters=iters, last_frame=-1,
                           lr=float(cfg.optimizer.lr.initial),
                           frame_order=order)
+            if not main:
+                continue
             mesh = nmap.extract_mesh()
             if mesh is not None:
                 out = os.path.join(working_dir, f"refined_{epoch}.ply")
                 mesh_mod.save_ply(out, mesh)
                 log.info(f"epoch {epoch}: exported {out} "
                          f"({len(mesh.vertices)} verts)")
-        nmap.save(os.path.join(working_dir, "refined"))
+        if main:
+            nmap.save(os.path.join(working_dir, "refined"))
         return mesh

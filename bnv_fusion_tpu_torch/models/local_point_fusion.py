@@ -1,6 +1,8 @@
 """Embedding pretraining: PointNet encoder + SDF decoder on local patches.
 
-Counterpart of bnv_fusion_tpu/models/local_point_fusion.py:33-268.  A local
+Counterpart of bnv_fusion_tpu/models/local_point_fusion.py:33-268
+(``trainer.pretrain_devices`` > 1 shards the patch batch over the process
+group, parallel/dp.py).  A local
 oriented point set is mean-pooled into one latent, the decoder regresses SDF
 at query points, trained with L1 plus a latent-norm regularizer; Adam with a
 staircase step decay of the learning rate (``optimizer.lr_scheduler``).
@@ -83,12 +85,15 @@ class FusionPointNetTrainer:
     role).  ``params`` is the nested dict of trainable tensors."""
 
     def __init__(self, cfg, params: Dict[str, Any] | None = None):
+        from bnv_fusion_tpu_torch import parallel
+
         self.cfg = cfg
-        n_dev = str(getattr(cfg.trainer, "pretrain_devices", 1) or 1)
-        if n_dev in ("all", "0") or int(n_dev) > 1:
-            raise NotImplementedError(
-                f"trainer.pretrain_devices={n_dev} is not ported yet "
-                "(ROADMAP Queue 1 item 14)")
+        # trainer.pretrain_devices > 1: the patch batch sharded over the
+        # process group (parallel.dp.make_sharded_pretrain_step); "all" / 0
+        # = the world size
+        self.n_devices = parallel.resolve_count(
+            getattr(cfg.trainer, "pretrain_devices", 1),
+            "trainer.pretrain_devices")
         self.device = resolve_device(getattr(cfg, "device_type", "tpu"))
         self.min_pts = int(cfg.model.min_pts_in_grid)
         self.n_local = int(getattr(cfg.dataset, "n_local_samples", 64))
@@ -108,6 +113,9 @@ class FusionPointNetTrainer:
             gamma=float(cfg.optimizer.lr_scheduler.gamma))
         self._rng = np.random.RandomState(1234)
         self.step_losses: list = []
+        self._dp_step = (parallel.make_sharded_pretrain_step(
+            parallel.make_mesh(self.n_devices), self.optimizer,
+            reg_weight=self.reg_weight) if self.n_devices > 1 else None)
 
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -124,7 +132,10 @@ class FusionPointNetTrainer:
     def train_step(self, batch: Dict[str, np.ndarray],
                    n_keep: np.ndarray | None = None):
         """One Adam step on a patch batch.  ``n_keep`` [B] (leading points
-        kept per patch) defaults to a draw in [min_pts // 2, n_local)."""
+        kept per patch) defaults to a draw in [min_pts // 2, n_local).
+        Under ``trainer.pretrain_devices`` > 1 every rank passes the same
+        global batch and draw (the generators are seeded alike) and the DP
+        step takes this rank's share (``launch.process_local_slice``)."""
         b = batch["input_pts"].shape[0]
         if n_keep is None:
             n_keep = self._rng.randint(self.min_pts // 2, self.n_local,
@@ -133,6 +144,10 @@ class FusionPointNetTrainer:
         keep = self._tensor(n_keep, torch.int64)
         q = self._tensor(batch["training_pts"])
         gt = self._tensor(batch["gt"])
+        if self._dp_step is not None:
+            loss, logs = self._dp_step(self.params, x, keep, q, gt)
+            self.scheduler.step()
+            return float(loss), {k: float(v) for k, v in logs.items()}
         return self._update(lambda p: pretrain_loss(p, x, keep, q, gt,
                                                     self.reg_weight))
 
@@ -207,8 +222,14 @@ class FusionPointNetTrainer:
         """Epochs of shuffled training batches, a validation pass per epoch,
         ``last.npz`` every epoch and ``best.npz`` on a new best validation
         loss (the shared save_state format).  Step losses land in
-        ``step_losses``.  Returns the best validation loss."""
-        os.makedirs(ckpt_dir, exist_ok=True)
+        ``step_losses``.  Returns the best validation loss.  Under a process
+        group every rank trains and validates its replica; rank 0 alone
+        logs and writes."""
+        from bnv_fusion_tpu_torch.parallel.launch import is_main_process
+
+        main = is_main_process()
+        if main:
+            os.makedirs(ckpt_dir, exist_ok=True)
         terminate_on_nan = bool(getattr(self.cfg.trainer,
                                         "terminate_on_nan", True))
         best = float("inf")
@@ -221,20 +242,23 @@ class FusionPointNetTrainer:
                 if terminate_on_nan and not np.isfinite(loss):
                     raise FloatingPointError(
                         f"non-finite loss {loss} at epoch {epoch} step {step}")
-                if step % log_every == 0:
+                if main and step % log_every == 0:
                     log.info(f"epoch {epoch} step {step} "
                              f"loss {loss:.4f} bce {logs['bce_loss']:.4f}")
                 step += 1
             val = np.mean([self.eval_step(b) for b in
                            iterate_batches(val_ds, batch_size)])
+            improved = val < best
+            best = min(best, val)
+            if not main:
+                continue
             log.info(f"epoch {epoch} val_loss {val:.4f}")
             if bool(getattr(self.cfg.trainer, "export_val_meshes", False)):
                 self.export_validation_meshes(
                     val_ds, os.path.join(ckpt_dir, "plots"), epoch)
             state = {"params": _to_numpy_tree(self.params)}
             save_state(os.path.join(ckpt_dir, "last.npz"), state)
-            if val < best:
-                best = val
+            if improved:
                 save_state(os.path.join(ckpt_dir, "best.npz"), state)
         return best
 

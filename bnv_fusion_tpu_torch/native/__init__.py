@@ -52,6 +52,9 @@ def _build_and_load() -> ctypes.CDLL:
     lib = load_library("mesh_ops")
     i64p = ctypes.POINTER(ctypes.c_int64)
     f32p = ctypes.POINTER(ctypes.c_float)
+    lib.mesh_ops_marching_tets.restype = ctypes.c_int64
+    lib.mesh_ops_marching_tets.argtypes = [i64p, f32p, ctypes.c_int64,
+                                           ctypes.c_double]
     lib.mesh_ops_marching_tets_indexed.restype = ctypes.c_int64
     lib.mesh_ops_marching_tets_indexed.argtypes = [
         i64p, i64p, f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
@@ -65,6 +68,42 @@ def _build_and_load() -> ctypes.CDLL:
     lib.mesh_ops_lattice_num_points.restype = ctypes.c_int64
     lib.mesh_ops_lattice_get.argtypes = [i64p, i64p, i64p]
     return lib
+
+
+def available() -> bool:
+    """True when the host mesher builds and loads (the JAX package's
+    ``native.available``; a failed build is reported as False here, where
+    the mesh callers raise it)."""
+    try:
+        _build_and_load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
+def marching_tetrahedra_native(cell_origins: np.ndarray, cell_sdf: np.ndarray,
+                               weld_tol: float = 0.0):
+    """Marching tetrahedra over sparse cells with the optional in-pass weld
+    (counterpart of bnv_fusion_tpu/native/__init__.py:73-98): origins
+    [M, 3], corner SDF [M, 8] in (4dx + 2dy + dz) order.  Returns (vertices
+    [V, 3] float32 in lattice units, faces [F, 3] int32)."""
+    lib = _build_and_load()
+    origins = np.ascontiguousarray(cell_origins, np.int64)
+    sdf = np.ascontiguousarray(cell_sdf, np.float32)
+    with _LOCK:
+        n_faces = lib.mesh_ops_marching_tets(
+            origins.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            sdf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            len(origins), float(weld_tol))
+        n_verts = lib.mesh_ops_num_vertices()
+        verts = np.empty((n_verts, 3), np.float32)
+        faces = np.empty((n_faces, 3), np.int32)
+        if n_verts:
+            lib.mesh_ops_get(
+                verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        lib.mesh_ops_free()
+    return verts, faces
 
 
 def marching_tetrahedra_indexed_native(cells: np.ndarray,

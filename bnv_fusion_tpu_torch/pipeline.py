@@ -1,7 +1,10 @@
 """NeuralMap: the online bi-level fusion pipeline (integrate / optimize / mesh).
 
 Counterpart of bnv_fusion_tpu/pipeline.py:36-1546 (with demo mode's
-incremental mesh, :1398-1496), limited to one device.  The table routes as
+incremental mesh, :1398-1496), with the data-parallel fuse and optimize of
+``trainer.fuse_devices`` / ``optimize_devices`` over a ``torch.distributed``
+process group (``parallel/``); the region-sharded table layout is not
+ported.  The table routes as
 ``tables.create_table`` does (dense, or blocks for big grids), and the TSDF
 prior is dense or, for big scenes (``model.tsdf_layout``), block-major
 with frustum-exact sparse updates.  PyTorch runs eagerly, so the JAX
@@ -10,7 +13,7 @@ needs no rebuild.  The device
 comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
 "the accelerator") and ``cuda`` select CUDA and raise where there is none;
 ``cpu`` is for tests.  Options this port does not implement yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``NotImplementedError`` naming their ROADMAP item (``check_supported``).
 """
 
 from __future__ import annotations
@@ -50,20 +53,20 @@ def resolve_device(device_type) -> torch.device:
 
 
 def check_supported(config) -> None:
-    """Raise NotImplementedError for every option value this slice of the
-    port does not implement (nothing diverges silently)."""
+    """Raise for every option value this port does not run: the
+    region-sharded table layout (``NotImplementedError`` naming its ROADMAP
+    item; every other ``model.table_layout`` runs as ``auto``, as in the
+    JAX package), and ``trainer.*_devices`` counts the process group cannot
+    serve (``ValueError``, ``parallel.resolve_count``)."""
+    from bnv_fusion_tpu_torch.parallel import resolve_count
+
     m, t = config.model, config.trainer
-
-    def refuse(what, item):
+    if str(getattr(m, "table_layout", "auto")) == "spatial":
         raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-    if str(getattr(m, "table_layout", "auto")) != "auto":
-        refuse(f"model.table_layout={m.table_layout}", 14)
+            "model.table_layout=spatial (the region-sharded map, slice "
+            "14b) is not ported yet (ROADMAP Queue 1 item 14)")
     for name in ("fuse_devices", "optimize_devices", "pretrain_devices"):
-        v = str(getattr(t, name, 1))
-        if v in ("all", "0") or int(v) > 1:
-            refuse(f"trainer.{name}={v}", 14)
+        resolve_count(getattr(t, name, 1), f"trainer.{name}")
 
 
 class Timer:
@@ -105,6 +108,17 @@ class NeuralMap:
         m = config.model
         self.config = config
         self.device = resolve_device(getattr(config, "device_type", "tpu"))
+        # trainer.fuse_devices / optimize_devices > 1: the DP paths over the
+        # process group (parallel/dp.py); "all" / 0 = the world size
+        from bnv_fusion_tpu_torch import parallel
+
+        self._fuse_devices = parallel.resolve_count(
+            getattr(config.trainer, "fuse_devices", 1))
+        self._optimize_devices = parallel.resolve_count(
+            getattr(config.trainer, "optimize_devices", 1))
+        self._group = (parallel.make_mesh() if max(self._fuse_devices,
+                                                   self._optimize_devices) > 1
+                       else None)
         self.params = bnn.params_from_numpy(
             _to_numpy_tree(params), self.device)
         self.working_dir = working_dir
@@ -427,9 +441,35 @@ class NeuralMap:
         self._integrate_prior(depth, T_wc, intr, rgb=rgb)
         return stats
 
+    def _fuse_sharded(self, depth, T_wc, intr, rgb=None) -> fusion.FrameStats:
+        """The per-frame step under ``trainer.fuse_devices`` > 1: the
+        frame's points (padded with valid=False rows to a multiple of the
+        group's size) through ``parallel.dp.make_sharded_fuse_frame`` at the
+        current widths, then the prior (and its colour) through the
+        single-device route, replicated on every rank."""
+        from bnv_fusion_tpu_torch.parallel import dp
+
+        max_unique, mu_cells = self._width_values()
+        step = dp.make_sharded_fuse_frame(
+            self._group, self.params, self.voxel_size, self.min_pts_in_grid,
+            self.table, max_unique=max_unique, max_unique_cells=mu_cells,
+            compute_dtype=self._model_dtype("fuse_dtype"))
+        pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
+        pad = -pts_w.shape[0] % self._fuse_devices
+        if pad:
+            pts_w = torch.cat([pts_w, pts_w.new_zeros((pad, 3))])
+            normals_w = torch.cat([normals_w, normals_w.new_zeros((pad, 3))])
+            valid = torch.cat([valid, valid.new_zeros((pad,))])
+        stats = step(self.table, pts_w, normals_w, valid, self.bound_min,
+                     self.bound_max)
+        self._integrate_prior(depth, T_wc, intr, rgb=rgb)
+        return stats
+
     def integrate(self, frame: Dict[str, Any]):
         """Fuse one frame and keep its depth + pose for the optimization ray
-        pool.  Frames with NaN poses are skipped."""
+        pool (through the points-sharded DP step when
+        ``trainer.fuse_devices`` > 1).  Frames with NaN poses are
+        skipped."""
         if np.any(np.isnan(np.asarray(frame["T_wc"]))):
             return None
         self._check_window_intr([frame])
@@ -444,7 +484,8 @@ class NeuralMap:
             if self._widths is None:
                 self._size_widths(*staged)
             self._last_staged_dev = staged
-        stats = self._fuse_one(depth, T_wc, intr, rgb)
+        fuse = self._fuse_sharded if self._fuse_devices > 1 else self._fuse_one
+        stats = fuse(depth, T_wc, intr, rgb)
         self._note_overflow()
         self._pending_stats.append(stats.n_avg_pts.reshape(1))
         self._fuse_epoch += 1
@@ -504,7 +545,14 @@ class NeuralMap:
         (``tsdf_every`` does not apply there, as in the JAX package).
         ``model.fuse_sort1_gather`` is accepted and changes nothing: the JAX
         package's option picks between two stage-1 sorts with identical
-        bits, and the port keeps the faster (``fusion._cellsort_sort1``)."""
+        bits, and the port keeps the faster (``fusion._cellsort_sort1``).
+        Under ``trainer.fuse_devices`` > 1 the frames go through
+        ``integrate`` one by one, without the K-merge, as in the JAX
+        package."""
+        if self._fuse_devices > 1:
+            for f in frames:
+                self.integrate(f)
+            return
         keep = [f for f in frames
                 if not np.any(np.isnan(np.asarray(f["T_wc"])))]
         if not keep:
@@ -587,13 +635,23 @@ class NeuralMap:
         error map, which every group reads as it stood before the group;
         ``trainer.optim_early_stop`` treats ``n_iters`` as a ceiling
         (``optimize.EarlyStop``).  Per-iteration losses land in
-        ``self.optimize_losses``, the count in ``self.last_optimize_iters``."""
+        ``self.optimize_losses``, the count in ``self.last_optimize_iters``.
+        Under ``trainer.optimize_devices`` > 1 each iteration is the ray-DP
+        step (``parallel.dp.make_sharded_optimize_iter``: the sequential
+        chunk schedule, whatever ``model.parallel_ray_chunks`` says) on the
+        same frames, pixels and uniforms as one device draws for the seed;
+        error-guided sampling is refused there, as in the JAX package."""
         if not self.frames:
             return
         m, tr = self.config.model, self.config.trainer
         if frame_order is None:
             frame_order = str(getattr(tr, "optim_frame_order", "random"))
         error_guided = bool(getattr(m, "error_guided_sampling", False))
+        if error_guided and self._optimize_devices > 1:
+            raise ValueError(
+                "error_guided_sampling is not supported with "
+                "trainer.optimize_devices > 1 (the per-frame error maps are "
+                "host state); set one or the other")
         # the mesh lattice builds on the host while the optimize runs; the
         # next extract_mesh takes it if no frame was fused since
         self.prefetch_mesh_lattice()
@@ -634,13 +692,14 @@ class NeuralMap:
             group_losses = []
             for j, fi in enumerate(fis):
                 f = frame_pool[fi]
+                guided = (dict(error_map=maps[j],
+                               pixel_generator=self._pixel_generator)
+                          if error_guided else {})
                 out = self._optim_step(
                     state, self.table, f["depth"], f["T_wc"], f["intr"],
                     self.bound_min, self.n_xyz, sdf_delta,
                     generator=self.generator,
-                    lr_scale=float(lr_scales[done + j]),
-                    error_map=maps[j] if error_guided else None,
-                    pixel_generator=self._pixel_generator)
+                    lr_scale=float(lr_scales[done + j]), **guided)
                 state, loss = out[0], out[1]
                 if error_guided:
                     self.error_maps[lo + int(fi)] = out[2]
@@ -655,9 +714,25 @@ class NeuralMap:
         self.table.weights = state.weights
 
     def make_optim_step(self, lr: float):
-        """The optimize step (``optimize.make_optimize_step``) at ``lr``
-        with this map's geometry and the config's model options."""
+        """The optimize step (``optimize.make_optimize_step``, or under
+        ``trainer.optimize_devices`` > 1 the ray-DP
+        ``parallel.dp.make_sharded_optimize_iter``) at ``lr`` with this
+        map's geometry and the config's model options."""
         m = self.config.model
+        if self._optimize_devices > 1:
+            from bnv_fusion_tpu_torch.parallel import dp
+
+            return dp.make_sharded_optimize_iter(
+                self._group, self.params, self.voxel_size,
+                self.min_pts_in_grid, self.truncated_units,
+                self.truncated_dist, self.ray_max_dist,
+                n_rays=self.sampling_size,
+                train_ray_splits=self.train_ray_splits, lr=lr,
+                neighbor_kernel=int(getattr(m, "neighbor_kernel", 3)),
+                n_fine=int(getattr(m.ray_tracer, "n_fine", 0) or 0),
+                n_coarse=int(getattr(m.ray_tracer, "n_coarse", 0) or 0),
+                compute_dtype=self._model_dtype("optim_dtype"),
+                grad_scatter=str(getattr(m, "grad_scatter", "sortreduce")))
         return optimize.make_optimize_step(
             self.params, voxel_size=self.voxel_size,
             min_pts_in_grid=self.min_pts_in_grid,

@@ -143,10 +143,13 @@ def prepare_render(table, rays: Rays, bound_min, voxel_size: float,
 
 def compute_sdf_loss(rays: Rays, pred_sdf: torch.Tensor,
                      pred_pts: torch.Tensor, cam_loc: torch.Tensor,
-                     truncated_dist: float, per_ray: bool = False):
+                     truncated_dist: float, per_ray: bool = False,
+                     reduce: str = "mean"):
     """Neighbourhood-corrected truncated L1 SDF loss, masked mean over
     rays.  ``per_ray`` also returns each ray's summed error [N] (the
-    error-guided sampler's input)."""
+    error-guided sampler's input).  ``reduce="sum"`` returns (summed error,
+    valid-ray count) instead: the ray-sharded DP step all-reduces both, so
+    the global masked mean matches one device's."""
     gt_depths = torch.linalg.norm(rays.gt_pts - cam_loc[None, :], dim=-1,
                                   keepdim=True)
     depths = torch.linalg.norm(pred_pts - cam_loc[None, None, :], dim=-1)
@@ -163,6 +166,8 @@ def compute_sdf_loss(rays: Rays, pred_sdf: torch.Tensor,
     num_valid = torch.sum(rays.mask) + 1e-4
     l1 = torch.abs(pred_sdf - gt_nearest_signed) * valid_map
     ray_err = torch.sum(l1, dim=-1) * rays.mask
+    if reduce == "sum":
+        return torch.sum(ray_err), torch.sum(rays.mask)
     loss = torch.sum(ray_err) / num_valid
     if per_ray:
         return loss, ray_err
@@ -174,15 +179,31 @@ def eval_render_loss(gathered_feats: torch.Tensor, prep, params: Dict[str, Any],
                      voxel_size: float, min_pts_in_grid: int,
                      truncated_dist: float,
                      compute_dtype: torch.dtype = torch.float32,
-                     per_ray: bool = False):
+                     per_ray: bool = False, reduce: str = "mean"):
     """Differentiable tail: gathered feature rows -> chunk loss (with
-    ``per_ray`` as in ``compute_sdf_loss``)."""
+    ``per_ray`` and ``reduce`` as in ``compute_sdf_loss``)."""
     n, s = pts.shape[:2]
     pred = fusion.decode_eval(gathered_feats, prep, params, voxel_size,
                               min_pts_in_grid,
                               compute_dtype=compute_dtype).reshape(n, s)
     return compute_sdf_loss(rays, pred, pts, cam_loc, truncated_dist,
-                            per_ray=per_ray)
+                            per_ray=per_ray, reduce=reduce)
+
+
+def composite_occupancy(pts: torch.Tensor, occupied_prob: torch.Tensor,
+                        dists: torch.Tensor):
+    """Expected surface point from per-sample occupancy along rays, by
+    front-to-back compositing of pass-through probabilities (counterpart of
+    bnv_fusion_tpu/render.py:130-145).  pts [N, S, 3], occupied_prob
+    [N, S], dists [N, S, 1] (unused, as there).  Returns (expected_pts
+    [N, 3], depth_prob [N, S], background_prob [N])."""
+    del dists
+    passthrough = torch.cumprod(1.0 - occupied_prob, dim=-1)
+    passthrough = torch.cat([torch.ones_like(passthrough[..., :1]),
+                             passthrough], dim=-1)
+    depth_prob = passthrough[..., :-1] * occupied_prob
+    expected = torch.sum(depth_prob[..., None] * pts, dim=-2)
+    return expected, depth_prob, passthrough[..., -1]
 
 
 def render_rays_sdf(features: torch.Tensor, table, params: Dict[str, Any],

@@ -13,7 +13,11 @@ when ``trainer.live_viewer_port`` is set).  Then it meshes the map
 (``before_optim.ply``),
 runs the global render-loss optimization, meshes again (``final.ply``),
 saves the map and prints the phase speeds and the F-scores against the
-analytic scene, in the JAX package's format.
+analytic scene, in the JAX package's format.  On N devices, one process
+each (rank 0 writes the outputs):
+
+    torchrun --nproc_per_node=N -m bnv_fusion_tpu_torch.run_e2e \\
+        trainer.fuse_devices=all trainer.optimize_devices=all
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 from bnv_fusion_tpu_torch import evaluation
 from bnv_fusion_tpu_torch import mesh as mesh_mod
 from bnv_fusion_tpu_torch.config import load_config
+from bnv_fusion_tpu_torch.parallel import launch
 from bnv_fusion_tpu_torch.pipeline import NeuralMap
 
 log = logging.getLogger(__name__)
@@ -56,16 +61,27 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
         ) -> Dict[str, Any]:
     """The whole main path; returns the map, the meshes, the F-scores, the
     working directory and, in demo mode, one record per event for callers
-    that check them."""
+    that check them.  Under torchrun (WORLD_SIZE above 1) every rank fuses
+    and optimizes its replica of the map through the DP paths of
+    ``trainer.fuse_devices`` / ``optimize_devices``; rank 0 alone meshes,
+    evaluates, saves, logs and writes, and the others meet it at a barrier
+    before they return (``parallel.launch.distributed``)."""
     cfg = load_config(overrides)
+    with launch.distributed(getattr(cfg, "device_type", "tpu")):
+        return _run(cfg, params)
+
+
+def _run(cfg, params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     from bnv_fusion_tpu_torch.datasets import get_dataset  # registers readers
 
+    main = launch.is_main_process()
     dataset = get_dataset(cfg, "val")
     if params is None:
         params = load_params(cfg)
     scan_id = cfg.dataset.scan_id.split("/")[-1]
     working_dir = os.path.join(cfg.output_dir, "run_e2e", scan_id)
-    os.makedirs(working_dir, exist_ok=True)
+    if main:
+        os.makedirs(working_dir, exist_ok=True)
 
     nmap = NeuralMap(dataset.dimensions, cfg, params, working_dir)
     demo_mode = str(cfg.model.mode) == "demo"
@@ -79,7 +95,7 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
     # page with the latest event mesh
     viewer = None
     viewer_port = int(getattr(cfg.trainer, "live_viewer_port", 0) or 0)
-    if viewer_port:
+    if viewer_port and main:
         from bnv_fusion_tpu_torch.utils.live_viewer import LiveViewer
 
         viewer = LiveViewer(port=viewer_port)
@@ -106,7 +122,7 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
             nmap.timer.log("local")
             if event and nmap.frames:
                 events.append(_demo_event(nmap, idx, optim_interval, skip,
-                                          working_dir, viewer))
+                                          working_dir, viewer, main))
     finally:
         if viewer is not None:
             viewer.close()
@@ -121,7 +137,7 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
             f"dropped observations — widen them or set them to 'auto'")
 
     nmap.timer.start("mesh")
-    before = nmap.extract_mesh()
+    before = nmap.extract_mesh() if main else None
     nmap.timer.log("mesh")
     if before is not None:
         mesh_mod.save_ply(os.path.join(working_dir, "before_optim.ply"), before)
@@ -137,6 +153,10 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
     nmap.timer.start("global")
     nmap.optimize(n_iters=global_steps, last_frame=-1)
     nmap.timer.log("global")
+    if not main:
+        return {"nmap": nmap, "before_optim": None, "final": None,
+                "fscores": {}, "working_dir": working_dir,
+                "global_steps": global_steps, "events": events}
 
     for phase in ("local", "global"):
         t = nmap.timer.times[phase]
@@ -179,10 +199,12 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
 
 
 def _demo_event(nmap: NeuralMap, idx: int, optim_interval: int, skip: int,
-                working_dir: str, viewer) -> Dict[str, Any]:
+                working_dir: str, viewer, main: bool = True
+                ) -> Dict[str, Any]:
     """One demo-mode event at frame ``idx``: optimize over the last
     ``optim_interval`` frames, refresh the incremental mesh, write
-    ``{idx}.ply`` and publish it.  Returns the event's record."""
+    ``{idx}.ply`` and publish it (the mesh on rank 0 only).  Returns the
+    event's record."""
     last = max(0, len(nmap.frames) - optim_interval)
     n_iters = min(len(nmap.frames), optim_interval) * skip
     tm = nmap.timer.times
@@ -190,6 +212,9 @@ def _demo_event(nmap: NeuralMap, idx: int, optim_interval: int, skip: int,
     nmap.timer.start("global")
     nmap.optimize(n_iters=n_iters, last_frame=last)
     nmap.timer.log("global")
+    if not main:
+        return {"frame": idx, "optimize_iters": n_iters,
+                "optimize_s": tm["global"] - t_opt}
     nmap.timer.start("inc_mesh")
     m = nmap.extract_mesh_incremental()
     nmap.timer.log("inc_mesh")

@@ -89,6 +89,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     op = OPERATING_POINTS[args.kind]
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.parallel import launch
+
+    # under torchrun the process group spans the whole sweep
+    device_type = load_config(sequence_overrides(
+        op, args.seqs[0], args.checkpoint, args.data_dir,
+        args.min_pts_in_grid, args.extra)).device_type
+    with launch.distributed(device_type):
+        return _sweep(args, op)
+
+
+def _sweep(args, op) -> int:
     failures = []
     for seq in args.seqs:
         overrides = sequence_overrides(op, seq, args.checkpoint,

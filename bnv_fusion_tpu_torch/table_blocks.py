@@ -87,8 +87,8 @@ def create_block_table(n_xyz, capacity: int, feat_dims: int,
             f"voxel grid {n_xyz} has {n_vox} cells; flat ids exceed int32 — "
             "use a coarser voxel_size.  (Scenes that fit int32 ids but not "
             "one card's memory need the region-sharded map, "
-            "model.table_layout=spatial, ROADMAP Queue 1 item 14; the "
-            "flat-id ceiling is int32 in every layout)")
+            "model.table_layout=spatial, ROADMAP Queue 1 item 14b, not "
+            "ported yet; the flat-id ceiling is int32 in every layout)")
     capacity = -(-int(capacity) // BLOCK_SLOTS) * BLOCK_SLOTS
     return BlockIndexedTable(n_xyz, capacity, feat_dims, device)
 

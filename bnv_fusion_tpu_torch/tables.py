@@ -1,7 +1,8 @@
 """Facade over the three sparse voxel tables.
 
 Counterpart of bnv_fusion_tpu/tables.py:45-106 (``replicated_spec`` is
-``shard_map``'s and belongs to ROADMAP Queue 1 item 14).
+``shard_map``'s partition spec: each rank of the port's DP steps holds the
+whole table in its own process, parallel/dp.py).
 
 * ``DenseIndexedTable`` (table_dense.py): a dense int32 slot map over the
   scene grid; every scene whose voxel count fits the map's memory.

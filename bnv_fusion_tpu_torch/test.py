@@ -18,6 +18,7 @@ import numpy as np
 
 from bnv_fusion_tpu_torch import mesh as mesh_mod
 from bnv_fusion_tpu_torch.config import load_config
+from bnv_fusion_tpu_torch.parallel import launch
 from bnv_fusion_tpu_torch.pipeline import NeuralMap
 from bnv_fusion_tpu_torch.utils.logging import get_logger
 
@@ -26,8 +27,16 @@ log = get_logger(__name__)
 
 def run(overrides):
     """Fuse, mesh and save; returns the map, the mesh and the saved map's
-    path prefix for callers that check them."""
+    path prefix for callers that check them.  Under torchrun every rank
+    fuses its replica (``trainer.fuse_devices``), rank 0 alone meshes and
+    saves, and every rank returns once the saved map exists (the refiner
+    of ``scripts.run_inference --mode fuse_refine`` reads it next)."""
     cfg = load_config(list(overrides))
+    with launch.distributed(getattr(cfg, "device_type", "tpu")):
+        return _run(cfg)
+
+
+def _run(cfg):
     from bnv_fusion_tpu_torch.datasets import get_dataset
     from bnv_fusion_tpu_torch.run_e2e import load_params
 
@@ -35,11 +44,15 @@ def run(overrides):
     params = load_params(cfg)
     scan_id = cfg.dataset.scan_id.split("/")[-1]
     out_dir = os.path.join(cfg.output_dir, "test", scan_id)
-    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, scan_id)
 
     nmap = NeuralMap(dataset.dimensions, cfg, params, out_dir)
     for i in range(len(dataset)):
         nmap.integrate(dataset[i])
+    if not launch.is_main_process():
+        launch.barrier()
+        return {"nmap": nmap, "mesh": None, "prefix": prefix}
+    os.makedirs(out_dir, exist_ok=True)
     if nmap.stats:
         s = np.asarray(nmap.stats)
         p25, p50, p75 = np.percentile(s, [25, 50, 75])
@@ -51,9 +64,9 @@ def run(overrides):
         out = os.path.join(out_dir, f"{scan_id}.ply")
         mesh_mod.save_ply(out, m)
         log.info(f"exported {out} ({len(m.vertices)} verts)")
-    prefix = os.path.join(out_dir, scan_id)
     nmap.save(prefix)
     log.info(f"sparse volume saved under {out_dir}")
+    launch.barrier()
     return {"nmap": nmap, "mesh": m, "prefix": prefix}
 
 

@@ -18,6 +18,7 @@ import os
 import sys
 
 from bnv_fusion_tpu_torch.config import load_config
+from bnv_fusion_tpu_torch.parallel import launch
 from bnv_fusion_tpu_torch.utils.logging import get_logger, print_config
 
 log = get_logger(__name__)
@@ -25,15 +26,25 @@ log = get_logger(__name__)
 
 def run(overrides):
     """Dispatch on the model name; returns the trainer or the refiner (and
-    the output directory) for callers that check them."""
+    the output directory) for callers that check them.  Under torchrun
+    every rank trains its replica (``trainer.pretrain_devices``,
+    ``optimize_devices``) and rank 0 alone logs and writes."""
     cfg = load_config(list(overrides))
-    print_config(cfg)
+    with launch.distributed(getattr(cfg, "device_type", "tpu")):
+        return _run(cfg)
+
+
+def _run(cfg):
     from bnv_fusion_tpu_torch.datasets import get_dataset
     from bnv_fusion_tpu_torch.models import get_model
 
+    main = launch.is_main_process()
+    if main:
+        print_config(cfg)
     name = cfg.model.name
     out_dir = os.path.join(cfg.output_dir, "train", name)
-    os.makedirs(out_dir, exist_ok=True)
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
 
     if name == "lit_fusion_pointnet":
         trainer = get_model(name)(cfg)
@@ -44,7 +55,8 @@ def run(overrides):
             max_epochs=int(cfg.trainer.max_epochs),
             batch_size=int(getattr(cfg.dataset, "train_batch_size", 32)),
             ckpt_dir=out_dir)
-        log.info(f"best val loss {best:.4f}; checkpoints in {out_dir}")
+        if main:
+            log.info(f"best val loss {best:.4f}; checkpoints in {out_dir}")
         return {"trainer": trainer, "best": best, "out_dir": out_dir}
 
     if name == "lit_fusion_refiner":

@@ -124,6 +124,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
      with both probe strategies, timed, with its probe rounds; one frame
      fused into a 2^21-slot hash table against the dense table's kernel
      front within HASH_FUSE_ATOL by key.
+ 11. parallel: the data-parallel layer (bnv_fusion_tpu_torch.parallel) at
+     world size 1 under NCCL on cuda:0 (parallel.launch.initialize over
+     tcp://127.0.0.1 with the card's device_id; one card takes no second
+     NCCL rank): the e2e phase's 48 frames at bench.py's point fused
+     through make_sharded_fuse_frame and, frame by frame, through
+     fusion.fuse_frame_cellsort (test.py's route): tables equal by voxel key
+     bit for bit; the DP-built map meshed by NeuralMap.extract_mesh
+     (fused_corner_decode launched, counts zeroed just before, read just
+     after) to the single map's vertex and face counts; 16 iterations of
+     make_sharded_optimize_iter against optimize.make_optimize_step on the
+     same drawn pixels and uniforms, each from the same state (losses
+     within PAR_LOSS_RTOL, bumped weights equal, gradient rows and latents
+     as tests/test_torch_optimize.py holds them); one make_sharded_pretrain_step
+     against the trainer's single step (tests/test_torch_pretrain.py's
+     tolerances); run_e2e with model.table_layout=dense and
+     trainer.fuse_devices / optimize_devices = all (the world size, 1): a
+     non-empty final.ply.  One line each, with the card's name and power
+     limit: DP and single per-frame fuse ms per frame (CUDA events,
+     medians), DP and single optimize s/iter, elements all-gathered per
+     frame.  The phase takes its process group down at the end.
 The e2e phase also holds the final mesh's optimize-overlapped lattice
 prefetch: a re-extraction through it launches the decode and equals the
 in-line build (model.mesh_prefetch=false) bit for bit; both are timed,
@@ -282,6 +302,12 @@ SDF_GRAD_POINTS = 1 << 16
 SDF_GRAD_FD_STEP = 1e-7
 SDF_GRAD_FD_RTOL = 1e-3
 SDF_GRAD_FD_SHARE = 0.99
+# the parallel phase: 16 ray-DP iterations against the single-device step
+# (tests/test_torch_optimize.py's loss tolerance, par_optimize), the
+# pretrain step at tests/test_torch_pretrain.py's tolerances
+PAR_OPT_ITERS = 16
+PAR_LOSS_RTOL = 1e-5
+PAR_PRE_RTOL, PAR_PRE_ATOL = 1e-5, 2e-6
 PRETRAIN_OVERRIDES = ["model=fusion_pointnet_model",
                       "dataset=synthetic_patches", "dataset.num_patches=1024",
                       "trainer.max_epochs=1"]
@@ -2382,6 +2408,285 @@ def phase_bigscene(tmp, params, card):
     del res, nmap, results
 
 
+def par_fuse_pass(nm, frames, fuse, times):
+    """Fuse ``frames`` into ``nm`` by ``fuse(pts, normals, valid)`` (timed
+    per frame with CUDA events into ``times``), and each frame's prior."""
+    import torch
+    from bnv_fusion_tpu_torch.pipeline import _frame_points
+
+    nm._ensure_window(frames[0])
+    for f in frames:
+        depth = nm._tensor(f["depth"])
+        T_wc, intr = nm._tensor(f["T_wc"]), nm._tensor(f["intr_mat"])
+        pts, nrm, valid = _frame_points(depth, T_wc, intr)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fuse(pts, nrm, valid)
+        e.record()
+        nm._integrate_prior(depth, T_wc, intr)
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+
+
+def par_optimize(nm, group, card):
+    """PAR_OPT_ITERS ray-DP iterations against the single-device step on the
+    same drawn pixels and uniforms.  Each iteration starts both steps from
+    the single step's state (so float noise cannot compound through Adam)
+    and holds: the losses within PAR_LOSS_RTOL, the bumped weights equal,
+    the gradients (recorded where the Adam update takes them) with at most
+    0.5% of the rows beyond 1e-4 * max|g|, and the latents within the
+    difference Adam's update makes of the two gradients (float64, from the
+    shared moments) plus 2 ulp: tests/test_torch_optimize.py's rules,
+    whose slope bound is this difference to first order at the first step.
+    Then both run PAR_OPT_ITERS iterations on their own, timed (single, DP,
+    DP, single)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import optimize, render, tsdf
+    from bnv_fusion_tpu_torch.parallel import dp
+
+    lr = 1e-3
+    kw = dict(voxel_size=nm.voxel_size, min_pts_in_grid=nm.min_pts_in_grid,
+              truncated_units=nm.truncated_units,
+              truncated_dist=nm.truncated_dist, ray_max_dist=nm.ray_max_dist,
+              n_rays=nm.sampling_size, train_ray_splits=nm.train_ray_splits,
+              lr=lr)
+    one = optimize.make_optimize_step(nm.params, parallel_chunks=False, **kw)
+    par = dp.make_sharded_optimize_iter(group, nm.params, **kw)
+    delta = tsdf.prepare_sdf_delta(nm.tsdf_vol, nm.tsdf_voxel_size,
+                                   nm.truncated_dist, nm.sdf_delta_weight)
+    g = torch.Generator().manual_seed(11)
+    nf, nc = nm.truncated_units * 2, int(nm.ray_max_dist * 5)
+    draws = []
+    for i in range(PAR_OPT_ITERS):
+        f = nm.frames[i % len(nm.frames)]
+        pix = torch.randperm(f["depth"].numel(), generator=g)[:nm.sampling_size]
+        uni = [render.draw_sampling_uniforms(g, nm.train_ray_splits, nf, nc,
+                                             nm.device)
+               for _ in range(nm.sampling_size // nm.train_ray_splits)]
+        draws.append((f, pix, uni))
+
+    def run(step, state, d):
+        f, pix, uni = d
+        return step(state, nm.table, f["depth"], f["T_wc"], f["intr"],
+                    nm.bound_min, nm.n_xyz, delta, pixel_ids=pix,
+                    uniforms=uni, lr_scale=1.0)
+
+    def adam64(s0, grad):
+        """optax.adam's update of grad from s0's moments, in float64."""
+        t = s0.count + 1
+        m = 0.9 * s0.mu.double() + 0.1 * grad
+        v = 0.999 * s0.nu.double() + 0.001 * grad * grad
+        return -lr * (m / (1 - 0.9 ** t)) / (
+            torch.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
+
+    grads = []
+    real_adam = optimize._adam_update
+
+    def recording_adam(state, grad, lr_, scale):
+        grads.append(grad.double())
+        real_adam(state, grad, lr_, scale)
+
+    optimize._adam_update = recording_adam
+    rel, rows_off, lat_slack = [], 0, 0.0
+    try:
+        state = optimize.init_optim_state(nm.table)
+        for d in draws:
+            s0 = dataclasses.replace(state, **{
+                k: getattr(state, k).clone()
+                for k in ("features", "weights", "mu", "nu")})
+            s_dp = dataclasses.replace(s0, **{
+                k: getattr(s0, k).clone()
+                for k in ("features", "weights", "mu", "nu")})
+            grads.clear()
+            state, l1 = run(one, state, d)
+            s_dp, l2 = run(par, s_dp, d)
+            g1, g2 = grads
+            l1, l2 = float(l1), float(l2)
+            rel.append(abs(l2 - l1) / abs(l1))
+            if rel[-1] > PAR_LOSS_RTOL:
+                raise AssertionError(f"DP optimize loss {l2} vs single {l1}")
+            if not torch.equal(state.weights, s_dp.weights):
+                raise AssertionError("DP optimize bumped weights differ")
+            off = ((g2 - g1).abs().amax(1) > 1e-4 * g1.abs().max()).sum()
+            rows_off = max(rows_off, int(off))
+            if off > 0.005 * int((g1.abs().amax(1) > 0).sum()):
+                raise AssertionError(f"DP gradient rows off: {int(off)}")
+            want = (adam64(s0, g2) - adam64(s0, g1)).abs() + 1e-9 + \
+                2.4e-7 * state.features.double().abs()
+            diff = (s_dp.features.double() - state.features.double()).abs()
+            if bool((diff > want).any()):
+                raise AssertionError("DP latents beyond Adam's update of "
+                                     "the gradient difference")
+            lat_slack = max(lat_slack, float(diff.max()))
+    finally:
+        optimize._adam_update = real_adam
+    times = []
+    for step in (one, par, par, one):
+        state = optimize.init_optim_state(nm.table)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for d in draws:
+            state, _ = run(step, state, d)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) / PAR_OPT_ITERS)
+    print(f"  parallel optimize: {PAR_OPT_ITERS} iterations from shared "
+          f"states, losses max rel diff {max(rel):.2e}, weights equal, "
+          f"gradient rows off at most {rows_off}, latents max diff "
+          f"{lat_slack:.2e} (within Adam's update of the gradient "
+          f"difference); DP {times[1]:.4f} / {times[2]:.4f} s/iter, single "
+          f"{times[0]:.4f} / {times[3]:.4f} s/iter (single, DP, DP, "
+          f"single) [{card}]", flush=True)
+    return times
+
+
+def par_pretrain(group):
+    """One make_sharded_pretrain_step against the trainer's single step on
+    one full-width batch."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.datasets import get_dataset
+    from bnv_fusion_tpu_torch.models.local_point_fusion import (
+        FusionPointNetTrainer, iterate_batches)
+    from bnv_fusion_tpu_torch.nn import init_model
+    from bnv_fusion_tpu_torch.parallel import dp
+
+    cfg = load_config(PRETRAIN_OVERRIDES)
+    batch = next(iterate_batches(get_dataset(cfg, "train"), 32))
+    n_keep = np.random.RandomState(5).randint(4, 64, size=32)
+    p0 = {net: {k: v.numpy() for k, v in d.items()}
+          for net, d in init_model(0, bias_std=BIAS_STD).items()}
+    one, par = FusionPointNetTrainer(cfg, p0), FusionPointNetTrainer(cfg, p0)
+    step = dp.make_sharded_pretrain_step(group, par.optimizer,
+                                         reg_weight=par.reg_weight)
+    l1, logs1 = one.train_step(batch, n_keep=n_keep)
+    t = par._tensor
+    l2, logs2 = step(par.params, t(batch["input_pts"]),
+                     t(n_keep, torch.int64), t(batch["training_pts"]),
+                     t(batch["gt"]))
+    if abs(float(l2) - l1) > PAR_PRE_RTOL * abs(l1):
+        raise AssertionError(f"DP pretrain loss {float(l2)} vs {l1}")
+    err = max(float((a - b).detach().abs().max()) for net in one.params
+              for a, b in zip(one.params[net].values(),
+                              par.params[net].values()))
+    if err > PAR_PRE_ATOL:
+        raise AssertionError(f"DP pretrain weights {err:.3e} from single")
+    print(f"  parallel pretrain: loss {l1:.6f} vs DP {float(l2):.6f}, "
+          f"weights after the step max diff {err:.2e}", flush=True)
+
+
+def phase_parallel(tmp, params, card):
+    """The DP layer at world size 1 under NCCL (see the module docstring)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bnv_fusion_tpu_torch import fusion, run_e2e
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.datasets import get_dataset
+    from bnv_fusion_tpu_torch.kernels import _build
+    from bnv_fusion_tpu_torch.parallel import dp, launch, make_mesh
+    from bnv_fusion_tpu_torch.pipeline import NeuralMap
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    launch.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"expected NCCL at world 1, got "
+                                 f"{dist.get_backend()} at "
+                                 f"{dist.get_world_size()}")
+        group = make_mesh(1)
+        cfg = load_config(OFFLINE_OVERRIDES + [f"output_dir={tmp}"])
+        ds = get_dataset(cfg, "val")
+        frames = [ds[i] for i in range(len(ds))]
+        maps = {k: NeuralMap(ds.dimensions, cfg, params) for k in ("dp",
+                                                                  "one")}
+        mu = int(cfg.model.max_unique_per_frame)
+        ndp, none = maps["dp"], maps["one"]
+        step = dp.make_sharded_fuse_frame(group, ndp.params, VOXEL,
+                                          ndp.min_pts_in_grid, ndp.table,
+                                          max_unique=mu)
+        group.traffic.clear()
+        t_dp, t_one = [], []
+        par_fuse_pass(ndp, frames, lambda p, n, v: step(
+            ndp.table, p, n, v, ndp.bound_min, ndp.bound_max), t_dp)
+        gathered = sum(n for op, n, _ in group.traffic
+                       if op == "all_gather") / len(frames)
+        par_fuse_pass(none, frames, lambda p, n, v: fusion.fuse_frame_cellsort(
+            none.table, none.params, p, n, v, none.bound_min, none.bound_max,
+            VOXEL, none.min_pts_in_grid, max_unique=mu), t_one)
+        for nm in (ndp, none):
+            if nm.overflow != 0:
+                raise AssertionError(f"parallel fuse overflow {nm.overflow}")
+        a, b = table_by_key(ndp), table_by_key(none)
+        same_table("DP fuse vs per-frame fuse", a, b)
+        print(f"  parallel fuse: {len(frames)} frames, {len(a[0])} voxels, "
+              f"DP table == per-frame table bit for bit by key", flush=True)
+        print(f"  parallel fuse: DP {np.median(t_dp):.3f} ms/frame, single "
+              f"per-frame {np.median(t_one):.3f} ms/frame (CUDA events, "
+              f"medians of {len(frames)}); {gathered:.0f} elements "
+              f"all-gathered per frame [{card}]", flush=True)
+        # what one collective costs the DP steps at world 1 (DPGroup's copy
+        # included): the fuse's partials, the optimize's scalars and bump
+        dev = ndp.device
+        ms = {what: median_ms(fn) for what, fn in (
+            ("all_reduce scalar", lambda: group.all_reduce(
+                torch.zeros((), device=dev))),
+            ("all_reduce [capacity]", lambda: group.all_reduce(
+                ndp.table.weights, "max")),
+            ("all_gather [U, 8]", lambda: group.all_gather(
+                ndp.table.features[:mu])))}
+        print("  parallel collectives at world 1: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ms.items()) +
+            f" (CUDA events, medians of 10) [{card}]", flush=True)
+
+        _build.LAUNCHES.clear()
+        m_dp = ndp.extract_mesh()
+        n_dec = _build.LAUNCHES.get("fused_corner_decode", 0)
+        m_one = none.extract_mesh()
+        if n_dec <= 0:
+            raise AssertionError("the DP map's mesh never launched "
+                                 "fused_corner_decode")
+        if m_dp is None or m_one is None or \
+                len(m_dp.vertices) != len(m_one.vertices) or \
+                len(m_dp.faces) != len(m_one.faces):
+            raise AssertionError("DP map's mesh counts differ from the "
+                                 "single map's")
+        print(f"  parallel mesh: {len(m_dp.vertices)} vertices, "
+              f"{len(m_dp.faces)} faces (== the single map's); "
+              f"fused_corner_decode launches {n_dec}", flush=True)
+
+        for f in frames:
+            none.frames.append({"depth": none._tensor(f["depth"]),
+                                "T_wc": none._tensor(f["T_wc"]),
+                                "intr": none._tensor(f["intr_mat"])})
+        par_optimize(none, group, card)
+        del maps, ndp, none
+        par_pretrain(group)
+
+        out = run_e2e.run(E2E_OVERRIDES + [
+            "model.table_layout=dense", "trainer.fuse_devices=all",
+            "trainer.optimize_devices=all", f"output_dir={tmp}/e2e"],
+            params=params)
+        head, n_v, n_f = read_ply_header(
+            os.path.join(out["working_dir"], "final.ply"))
+        if "binary_little_endian" not in head or n_v <= 0 or n_f <= 0:
+            raise AssertionError("run_e2e with the device counts at all: "
+                                 "final.ply is not a non-empty binary PLY")
+        print(f"  parallel run_e2e (table_layout=dense, fuse_devices=all, "
+              f"optimize_devices=all at world 1): final.ply {n_v} "
+              f"vertices, {n_f} faces", flush=True)
+    finally:
+        launch.shutdown()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bnv_fusion_tpu_torch")):
         return fail("bnv_fusion_tpu_torch/ not found beside chip_smoke.py; "
@@ -2523,6 +2828,12 @@ def main() -> int:
         t0 = time.time()
         phase_bigscene(os.path.join(tmp, "bigscene"), params, card)
         print(f"phase bigscene: {time.time() - t0:.1f} s", flush=True)
+
+        print("phase parallel: the DP layer at world 1 under NCCL",
+              flush=True)
+        t0 = time.time()
+        phase_parallel(os.path.join(tmp, "parallel"), params, card)
+        print(f"phase parallel: {time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

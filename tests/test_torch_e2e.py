@@ -183,15 +183,41 @@ def test_cuda_device_type_raises_without_cuda(monkeypatch):
                    run_e2e.load_params(cfg))
 
 
-@pytest.mark.parametrize("override,item", [
-    ("trainer.fuse_devices=2", 14), ("trainer.optimize_devices=2", 14),
-    ("trainer.pretrain_devices=2", 14), ("model.table_layout=spatial", 14)])
-def test_unsupported_options_raise(override, item):
+@pytest.mark.parametrize("override,error,match", [
+    ("trainer.fuse_devices=2", ValueError, "requested 2 devices, have 1"),
+    ("trainer.optimize_devices=2", ValueError, "requested 2 devices, have 1"),
+    ("trainer.pretrain_devices=2", ValueError, "requested 2 devices, have 1"),
+    ("model.table_layout=spatial", NotImplementedError,
+     r"ROADMAP Queue 1 item 14\)")])
+def test_unsupported_options_raise(override, error, match):
+    """A device count above 1 without a process group of that size raises
+    the launcher's ValueError (it names torchrun); the region-sharded
+    layout is not ported (item 14)."""
     cfg = tload_config(OVERRIDES + ["device_type=cpu", override])
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue 1 item {item}\)"):
+    with pytest.raises(error, match=match) as info:
         TNeuralMap(np.array([2.6, 2.6, 1.6], np.float32), cfg,
                    run_e2e.load_params(cfg))
+    if error is ValueError:
+        assert "torchrun --nproc_per_node=2" in str(info.value)
+
+
+@pytest.mark.parametrize("override", [
+    "model.table_layout=dense", "trainer.fuse_devices=all",
+    "trainer.fuse_devices=0", "trainer.optimize_devices=all",
+    "trainer.pretrain_devices=all"])
+def test_single_device_values_run(override):
+    """Values the JAX package runs on one device run the single-device path
+    here at a world of 1: any table layout but spatial as auto, and a
+    device count of all / 0 as the world size."""
+    cfg = tload_config(OVERRIDES + ["device_type=cpu", override])
+    ds = SyntheticDemoDataset(jload_config(OVERRIDES), "val")
+    nm = TNeuralMap(ds.dimensions, cfg, run_e2e.load_params(cfg))
+    assert nm._fuse_devices == nm._optimize_devices == 1
+    assert nm._group is None
+    nm.integrate_batch([ds[0], ds[1]])
+    nm.optimize(1)
+    assert int(nm.table.n_alloc) > 0 and len(nm.optimize_losses) == 1
+    assert np.isfinite(nm.optimize_losses).all()
 
 
 # the model and trainer options of the dense single-device path, each alone
@@ -283,6 +309,9 @@ import bnv_fusion_tpu_torch.models.fusion_refiner
 import bnv_fusion_tpu_torch.dense_grid, bnv_fusion_tpu_torch.utils.vis
 import bnv_fusion_tpu_torch.incremental_mesh
 import bnv_fusion_tpu_torch.utils.live_viewer
+import bnv_fusion_tpu_torch.parallel.dryrun
+from bnv_fusion_tpu_torch.parallel import launch, make_mesh
+assert make_mesh().size == 1 and launch.is_main_process()
 from bnv_fusion_tpu_torch.kernels.fused_mlp import FusedMLP
 from bnv_fusion_tpu_torch.models import get_model
 assert get_model("lit_fusion_pointnet") and get_model("lit_fusion_refiner")

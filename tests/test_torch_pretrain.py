@@ -125,9 +125,12 @@ def test_lr_schedule_is_staircase_decay():
 
 
 def test_pretrain_devices_refused():
+    """trainer.pretrain_devices=2 without a 2-rank process group raises the
+    launcher's ValueError (the DP step itself is held in
+    tests/test_torch_parallel_optimize.py)."""
     cfg = tload_config(PATCH_CFG + ["device_type=cpu",
                                     "trainer.pretrain_devices=2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         TTrainer(cfg)
 
 
