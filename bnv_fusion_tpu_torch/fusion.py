@@ -641,6 +641,9 @@ class DecodePrep(NamedTuple):
     local: torch.Tensor      # [M, 8, 3] corner-local offsets
     w: torch.Tensor          # [M, 8] decode-mask weights
     delta: Optional[torch.Tensor]   # [M, 8] prior samples
+    # [8M] the corners whose rows this rank holds, under a corner-row hook
+    # (``rows``, parallel.spatial.OwnerRows); None = ``found``
+    owned: Optional[torch.Tensor] = None
 
 
 def _sample_delta_nearest(sdf_delta: torch.Tensor, corners: torch.Tensor,
@@ -666,22 +669,41 @@ def _sample_delta_nearest(sdf_delta: torch.Tensor, corners: torch.Tensor,
 def decode_prepare(table, pts: torch.Tensor, bound_min, voxel_size: float,
                    sdf_delta: Optional[torch.Tensor] = None, n_xyz=None,
                    is_coords: bool = False,
-                   weights: Optional[torch.Tensor] = None) -> DecodePrep:
+                   weights: Optional[torch.Tensor] = None,
+                   rows=None) -> DecodePrep:
     """Everything decode_points computes except the feature-dependent part.
-    ``weights`` overrides ``table.weights`` (the optimizer's bumped copy)."""
+    ``weights`` overrides ``table.weights`` (the optimizer's bumped copy).
+    ``rows`` (``parallel.spatial.OwnerRows``) replaces the table's lookup
+    by its owner-assembled one: ``slots`` are then this rank's, ``owned``
+    marks the corners it holds, and ``found`` and ``w`` are assembled over
+    the ranks."""
     coords = pts if is_coords else voxel.position_to_coords(pts, bound_min,
                                                             voxel_size)
     corners = voxel.corner_neighbors(coords)
     tw = voxel.trilinear_weights(coords, corners)
     local = voxel.local_offsets(coords, corners)
     m = coords.shape[0]
-    slots, found = tbl.lookup(table, corners.reshape(m * 8, 3))
     wsrc = table.weights if weights is None else weights
-    w = torch.where(found, wsrc[slots], torch.zeros((), device=pts.device))
+    owned = None
+    if rows is None:
+        slots, found = tbl.lookup(table, corners.reshape(m * 8, 3))
+        w = torch.where(found, wsrc[slots], torch.zeros((), device=pts.device))
+    else:
+        slots, owned, found, w = rows.lookup(table, corners.reshape(m * 8, 3),
+                                             wsrc)
     delta = (None if sdf_delta is None
              else _sample_delta_nearest(sdf_delta, corners, n_xyz))
     return DecodePrep(slots=slots, found=found, tw=tw, local=local,
-                      w=w.reshape(m, 8), delta=delta)
+                      w=w.reshape(m, 8), delta=delta, owned=owned)
+
+
+def corner_rows(rows_src: torch.Tensor, prep: DecodePrep,
+                rows=None) -> torch.Tensor:
+    """``rows_src`` (features) at the batch's corners, [8M, F]: one gather,
+    or through the corner-row hook ``rows`` (assembled over the ranks)."""
+    if rows is None:
+        return rows_src[prep.slots]
+    return rows.gather(rows_src, prep.slots, prep.owned)
 
 
 def decode_eval(gathered_feats: torch.Tensor, prep: DecodePrep,
@@ -715,8 +737,8 @@ def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
                   masked_fill: Optional[float] = None,
                   layout: str = "rows",
                   packed_decoder: Optional[torch.Tensor] = None,
-                  compute_dtype: torch.dtype = torch.float32
-                  ) -> torch.Tensor:
+                  compute_dtype: torch.dtype = torch.float32,
+                  rows=None) -> torch.Tensor:
     """SDF at world points (or voxel coords) [M, 3] via 8-corner decode +
     blend: corners under min_pts weight mask the point (+voxel_size, or
     ``masked_fill``), the nearest-sampled prior is added.  With
@@ -724,7 +746,8 @@ def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
     (forward only), on ``packed_decoder`` (its ``packed``) where given.
     ``layout="fm"`` takes ``decode_points_fm`` on the slot-map tables
     unless the fused kernel is on, as in the JAX package (the kernel has its
-    own layout; a hash table decodes in the rows layout)."""
+    own layout; a hash table decodes in the rows layout).  ``rows`` is the
+    corner-row hook of a region-sharded table (``decode_prepare``)."""
     if layout not in ("rows", "fm"):
         raise ValueError(f"unknown decode layout {layout!r} (rows | fm)")
     if layout == "fm" and not use_fused_kernel and \
@@ -734,15 +757,17 @@ def decode_points(features: torch.Tensor, table, params: Dict[str, Any],
                                 sdf_delta=sdf_delta, n_xyz=n_xyz,
                                 is_coords=is_coords,
                                 compute_dtype=compute_dtype,
-                                masked_fill=masked_fill)
+                                masked_fill=masked_fill, rows=rows)
     prep = decode_prepare(table, pts, bound_min, voxel_size,
-                          sdf_delta=sdf_delta, n_xyz=n_xyz, is_coords=is_coords)
+                          sdf_delta=sdf_delta, n_xyz=n_xyz,
+                          is_coords=is_coords, rows=rows)
     if not use_fused_kernel:
-        return decode_eval(features[prep.slots], prep, params, voxel_size,
-                           min_pts_in_grid, masked_fill=masked_fill,
+        return decode_eval(corner_rows(features, prep, rows), prep, params,
+                           voxel_size, min_pts_in_grid,
+                           masked_fill=masked_fill,
                            compute_dtype=compute_dtype)
     m = prep.tw.shape[0]
-    feats = torch.where(prep.found[:, None], features[prep.slots],
+    feats = torch.where(prep.found[:, None], corner_rows(features, prep, rows),
                         torch.zeros((), device=features.device))
     sdf = fused_corner_decode(params, prep.local.contiguous(),
                               feats.reshape(m, 8, -1).contiguous(),
@@ -762,14 +787,16 @@ def decode_points_fm(features: torch.Tensor, table, params: Dict[str, Any],
                      sdf_delta: Optional[torch.Tensor] = None, n_xyz=None,
                      is_coords: bool = False,
                      compute_dtype: torch.dtype = torch.float32,
-                     masked_fill: Optional[float] = None) -> torch.Tensor:
+                     masked_fill: Optional[float] = None,
+                     rows=None) -> torch.Tensor:
     """``decode_points`` with feature-major internals (counterpart of
     bnv_fusion_tpu/fusion.py:1029-1128): coordinates [3, M], corners
     [8, 3, M], decoder activations [C, 8M] with the corner-major point
     order k * M + i, so the decoder is W^T @ X on wide operands.  The
     corners are where(pattern, ceil, floor) of the coordinates, blended
     with normalized trilinear weights; differentiable w.r.t. ``features``
-    and ``pts``.  Slot-map tables (dense, blocks) only."""
+    and ``pts`` (w.r.t. ``pts`` only under ``rows``, the corner-row hook of
+    a region-sharded table).  Slot-map tables (dense, blocks) only."""
     m = pts.shape[0]
     dev = pts.device
     zero = torch.zeros((), device=dev)
@@ -787,16 +814,23 @@ def decode_points_fm(features: torch.Tensor, table, params: Dict[str, Any],
     tw = w8 / torch.clamp(torch.sum(w8, dim=0, keepdim=True), min=1e-12)
 
     cor_i = corT.detach().to(torch.int32)
-    nx = table.n_xyz
-    inside = ((cor_i[:, 0] >= 0) & (cor_i[:, 0] < nx[0]) &
-              (cor_i[:, 1] >= 0) & (cor_i[:, 1] < nx[1]) &
-              (cor_i[:, 2] >= 0) & (cor_i[:, 2] < nx[2]))   # [8, M]
-    slots, found = tbl.lookup_coords3(table, cor_i[:, 0], cor_i[:, 1],
-                                      cor_i[:, 2], inside)
-    flat_slots = slots.reshape(8 * m)                       # corner-major
-    foundf = found.reshape(8 * m)
-    w = torch.where(foundf, table.weights[flat_slots], zero).reshape(8, m)
-    featsT = torch.where(foundf[None, :], features[flat_slots].T, zero)
+    if rows is None:
+        nx = table.n_xyz
+        inside = ((cor_i[:, 0] >= 0) & (cor_i[:, 0] < nx[0]) &
+                  (cor_i[:, 1] >= 0) & (cor_i[:, 1] < nx[1]) &
+                  (cor_i[:, 2] >= 0) & (cor_i[:, 2] < nx[2]))   # [8, M]
+        slots, found = tbl.lookup_coords3(table, cor_i[:, 0], cor_i[:, 1],
+                                          cor_i[:, 2], inside)
+        flat_slots = slots.reshape(8 * m)                   # corner-major
+        foundf = found.reshape(8 * m)
+        w = torch.where(foundf, table.weights[flat_slots], zero).reshape(8, m)
+        gathered = features[flat_slots]
+    else:
+        flat_slots, owned, foundf, w = rows.lookup(
+            table, cor_i.permute(0, 2, 1).reshape(8 * m, 3), table.weights)
+        w = w.reshape(8, m)
+        gathered = rows.gather(features, flat_slots, owned)
+    featsT = torch.where(foundf[None, :], gathered.T, zero)
 
     # PE channel order [xyz, sin(xyz), cos(xyz)], points in flat_slots' order
     local_c = localT.transpose(0, 1).reshape(3, 8 * m)

@@ -107,8 +107,10 @@ class FusionRefiner:
         iters = iters_per_epoch or len(nmap.frames)
         mesh = None
         # under a process group every rank optimizes its replica
-        # (trainer.optimize_devices); rank 0 alone meshes and writes
+        # (trainer.optimize_devices); rank 0 alone meshes and writes, but
+        # every rank of a spatial map meshes and saves (collectives)
         main = is_main_process()
+        meshes = main or nmap.mesh_is_collective
         if main:
             os.makedirs(working_dir, exist_ok=True)
         # the reference refiner sweeps every frame once per epoch in order;
@@ -118,14 +120,14 @@ class FusionRefiner:
             nmap.optimize(n_iters=iters, last_frame=-1,
                           lr=float(cfg.optimizer.lr.initial),
                           frame_order=order)
-            if not main:
+            if not meshes:
                 continue
             mesh = nmap.extract_mesh()
-            if mesh is not None:
+            if mesh is not None and main:
                 out = os.path.join(working_dir, f"refined_{epoch}.ply")
                 mesh_mod.save_ply(out, mesh)
                 log.info(f"epoch {epoch}: exported {out} "
                          f"({len(mesh.vertices)} verts)")
-        if main:
+        if meshes:
             nmap.save(os.path.join(working_dir, "refined"))
-        return mesh
+        return mesh if main else None

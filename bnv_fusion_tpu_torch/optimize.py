@@ -96,7 +96,7 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
                        decode_layout: str = "rows",
                        parallel_chunks: bool = False,
                        n_fine: int = 0, n_coarse: int = 0,
-                       grad_scatter: str = "sortreduce"):
+                       grad_scatter: str = "sortreduce", rows=None):
     """Build ``step(state, table, depth, T_wc, intr, bound_min, n_xyz,
     sdf_delta, generator=None, pixel_ids=None, uniforms=None, lr_scale=1.0,
     error_map=None, pixel_generator=None) -> (state, loss)``.
@@ -111,7 +111,11 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
     ``pixel_ids`` are given, and returns ``(state, loss, new_map)``: the
     map updated with every chunk's per-ray errors, in chunk order.
     ``decode_layout`` is accepted and unused, as in the JAX package's
-    single-device step: the loss always decodes in the rows layout."""
+    single-device step: the loss always decodes in the rows layout.
+    ``rows`` is the corner-row hook of a region-sharded table
+    (``parallel.spatial.OwnerRows``): the chunks' corner
+    rows come assembled over the ranks, and the count_optim bump and the
+    gradient rows go to the corners this rank's shard holds."""
     del decode_layout
     if n_rays % train_ray_splits:
         raise ValueError("n_rays must be a multiple of train_ray_splits")
@@ -152,8 +156,9 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
                 table, chunk, bound_min, voxel_size, truncated_units,
                 truncated_dist, ray_max_dist, sdf_delta, n_xyz,
                 ts=uniforms[c], n_fine=n_fine, n_coarse=n_coarse,
-                weights=w_in)
-            gfeats = state.features[prep.slots].detach().requires_grad_(True)
+                weights=w_in, rows=rows)
+            gfeats = fusion.corner_rows(state.features, prep,
+                                        rows).detach().requires_grad_(True)
             with torch.enable_grad():
                 out = render.eval_render_loss(
                     gfeats, prep, params, chunk, pts, cam_loc, voxel_size,
@@ -163,13 +168,14 @@ def make_optimize_step(params: Dict[str, Any], voxel_size: float,
                 (g_rows,) = torch.autograd.grad(loss, gfeats)
             if error_guided:
                 ray_errs.append(out[1].detach())
-            bumped = fusion.bump_optim_weights(w_in, prep.slots, prep.found)
+            held = prep.found if rows is None else prep.owned
+            bumped = fusion.bump_optim_weights(w_in, prep.slots, held)
             if parallel_chunks:
                 bump_sum = bump_sum + (bumped - w0)
             else:
                 weights = bumped
             losses.append(loss.detach())
-            gidx_all.append(torch.where(prep.found, prep.slots, cap))
+            gidx_all.append(torch.where(held, prep.slots, cap))
             grows_all.append(g_rows)
         state.weights = w0 + bump_sum if parallel_chunks else weights
         grads = fusion.scatter_add_rows(torch.cat(gidx_all),

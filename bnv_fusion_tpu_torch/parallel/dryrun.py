@@ -1,4 +1,4 @@
-"""Multi-rank dry run of the data-parallel steps on gloo ranks on the CPU.
+"""Multi-rank dry run of the multi-device steps on gloo ranks on the CPU.
 
 Counterpart of ``dryrun_multichip`` (__graft_entry__.py:46), which runs the
 JAX package's sharded steps on a virtual CPU mesh:
@@ -9,8 +9,13 @@ spawns that many processes, brings up a gloo group among them through a
 ``file://`` rendezvous, and runs one step of each DP function on tiny
 shapes: the sharded fuse, the ray-DP optimize iteration and the older
 optimize step, ``NeuralMap.optimize`` through the ray-DP path, and the
-pretrain step.  Each rank writes its results; the run fails unless every
-rank's replicated state is bit-identical and finite.
+pretrain step; and the region-sharded map (``parallel/spatial.py``): its
+fuse, decode and optimize step, and ``NeuralMap`` under
+``model.table_layout=spatial`` through fuse -> optimize -> mesh (the
+counterpart of __graft_entry__.py:198-233).  Each rank writes its results;
+the run fails unless every rank's replicated results are bit-identical and
+finite (a spatial case's per-shard arrays, under ``shard/``, differ by
+design and are left out).
 
 ``run_ranks`` is the machinery: the same named cases on caller-given numpy
 inputs (``<case>/<name>`` keys in one ``.npz``, the weights under
@@ -88,6 +93,181 @@ def _traffic(group) -> Arrays:
                                            np.int64),
             "traffic/shapes": np.asarray([json.dumps(t[2])
                                           for t in group.traffic])}
+
+
+def _spatial_state(group, table, prefix: str = "") -> Arrays:
+    """A region-sharded table's entries gathered on every rank, sorted by
+    key (replicated), and this rank's shard under ``shard/``: its n_alloc,
+    its slot map's and value rows' lengths, the global flat id of each of
+    its slots in slot order, and its overflow."""
+    from bnv_fusion_tpu_torch.parallel import spatial
+
+    keys, feats, w, h = spatial.spatial_active_entries(group, table)
+    o = np.lexsort(keys.T)
+    n = int(table.n_alloc)
+    return {f"{prefix}keys": keys[o], f"{prefix}feats": feats[o],
+            f"{prefix}weights": w[o], f"{prefix}hits": h[o],
+            f"{prefix}shard/n_alloc": np.asarray(n),
+            f"{prefix}shard/slot_map_len": np.asarray(table.slot_map.numel()),
+            f"{prefix}shard/rows": np.asarray(table.features.shape[0]),
+            f"{prefix}shard/flat": table.slot_flat[:n].numpy().astype(
+                np.int64) + table.lo,
+            f"{prefix}shard/overflow": table.overflow.numpy()}
+
+
+def _load_spatial(group, c: Arrays):
+    from bnv_fusion_tpu_torch.parallel import spatial
+
+    like = spatial.create_spatial_table(
+        group, tuple(int(v) for v in c["n_xyz"]), int(c["capacity"]),
+        c["feats"].shape[1], "cpu")
+    return spatial.load_spatial_entries(group, like, c["keys"], c["feats"],
+                                        c["weights"], c["hits"])
+
+
+def case_sp_fuse(group, c: Arrays) -> Arrays:
+    """``make_spatial_fuse_frame`` once on (pts, normals, valid) into an
+    empty region-sharded table of ``n_xyz`` / ``capacity``; ``cfg`` =
+    (voxel size, min_pts, max_unique)."""
+    from bnv_fusion_tpu_torch.parallel import spatial
+
+    vs, min_pts, max_unique = c["cfg"]
+    table = spatial.create_spatial_table(
+        group, tuple(int(v) for v in c["n_xyz"]), int(c["capacity"]), 8,
+        "cpu")
+    step = spatial.make_spatial_fuse_frame(group, _params(c), float(vs),
+                                           int(min_pts),
+                                           max_unique=int(max_unique))
+    group.traffic.clear()
+    t = torch.as_tensor
+    stats = step(table, t(c["pts"]), t(c["normals"]), t(c["valid"]),
+                 t(c["bound_min"]), t(c["bound_max"]))
+    out = _traffic(group)
+    out.update(_spatial_state(group, table))
+    out.update({f"stats/{k}": v.numpy() for k, v in stats._asdict().items()})
+    return out
+
+
+def case_sp_decode(group, c: Arrays) -> Arrays:
+    """``make_spatial_decode`` of the voxel coords ``q`` on the entries
+    (keys, feats, weights, hits) loaded into a region-sharded table, in the
+    rows and the fm layout; ``cfg`` = (voxel size, min_pts)."""
+    from bnv_fusion_tpu_torch.parallel import spatial
+
+    vs, min_pts = c["cfg"]
+    table = _load_spatial(group, c)
+    q = torch.as_tensor(c["q"])
+    out: Arrays = {}
+    for layout in ("rows", "fm"):
+        group.traffic.clear()
+        dec = spatial.make_spatial_decode(group, _params(c), float(vs),
+                                          int(min_pts), layout=layout)
+        out[f"sdf_{layout}"] = dec(table, q).numpy()
+    out.update(_traffic(group))
+    out.update(_spatial_state(group, table))
+    return out
+
+
+def case_sp_optimize(group, c: Arrays) -> Arrays:
+    """``optimize.make_optimize_step`` on ``spatial.OwnerRows`` for
+    len(pixel_ids) iterations on the loaded entries with the injected
+    pixels and per-chunk uniforms (the single step's draws); ``cfg`` =
+    (voxel size, min_pts, truncated_units, truncated_dist, ray_max_dist,
+    n_rays, splits, lr).  The entries after the first iteration (and its
+    Adam first moment) and the last, the losses, and the collectives of the
+    last iteration."""
+    from bnv_fusion_tpu_torch import optimize
+    from bnv_fusion_tpu_torch.parallel import spatial
+
+    vs, min_pts, units, trunc, ray_max, n_rays, splits, lr = c["cfg"]
+    table = _load_spatial(group, c)
+    step = optimize.make_optimize_step(
+        _params(c), voxel_size=float(vs), min_pts_in_grid=int(min_pts),
+        truncated_units=int(units), truncated_dist=float(trunc),
+        ray_max_dist=float(ray_max), n_rays=int(n_rays),
+        train_ray_splits=int(splits), lr=float(lr),
+        rows=spatial.OwnerRows(group))
+    state = optimize.init_optim_state(table)
+    t = torch.as_tensor
+    losses, out = [], {}
+    for i in range(len(c["pixel_ids"])):
+        uni = [(t(f), t(k)) for f, k in zip(c["uniforms_fine"][i],
+                                            c["uniforms_coarse"][i])]
+        group.traffic.clear()
+        state, loss = step(state, table, t(c["depth"]), t(c["T_wc"]),
+                           t(c["intr"]), t(c["bound_min"]),
+                           tuple(int(v) for v in c["n_xyz"]), None,
+                           pixel_ids=t(c["pixel_ids"][i]), uniforms=uni)
+        losses.append(loss.numpy())
+        table.features, table.weights = state.features, state.weights
+        if i == 0:
+            out.update(_spatial_state(group, table, "first/"))
+            table.features = state.mu      # the first moment, by key
+            out["first/mu"] = _spatial_state(group, table)["feats"]
+            table.features = state.features
+    out.update(_traffic(group))
+    out.update(_spatial_state(group, table))
+    out["losses"] = np.stack(losses)
+    return out
+
+
+def _mesh_arrays(m, prefix: str) -> Arrays:
+    if m is None:
+        return {f"{prefix}vertices": np.zeros((0, 3), np.float32),
+                f"{prefix}faces": np.zeros((0, 3), np.int64)}
+    return {f"{prefix}vertices": np.asarray(m.vertices),
+            f"{prefix}faces": np.asarray(m.faces)}
+
+
+def case_sp_nm(group, c: Arrays) -> Arrays:
+    """``NeuralMap`` under ``model.table_layout=spatial`` and
+    ``trainer.fuse_devices`` = the world size: the frames fused one by one,
+    an incremental mesh, ``optimize(n_iters)``, the incremental mesh again
+    (and once more with nothing changed), ``extract_mesh``, and ``save``
+    into ``save_dir``/r<rank>; then, given ``load_prefix``, a fresh
+    spatial map ``load_map``-ed from it and meshed."""
+    nm = _neural_map(group, c, "trainer.fuse_devices")
+    for f in _frames(c):
+        nm.integrate(f)
+    out = {"n_xyz": np.asarray(nm.n_xyz), "overflow": np.asarray(nm.overflow)}
+    out.update(_spatial_state(group, nm.table, "fused/"))
+    out.update(_mesh_arrays(nm.extract_mesh_incremental(), "inc0/"))
+    nm.optimize(int(c["n_iters"]))
+    out["losses"] = np.asarray(nm.optimize_losses, np.float32)
+    for i in (1, 2):
+        out.update(_mesh_arrays(nm.extract_mesh_incremental(), f"inc{i}/"))
+        out[f"inc{i}/stats"] = np.asarray(
+            [nm.inc_mesher.last_stats[k]
+             for k in ("changed", "redecoded", "eligible")])
+    out.update(_mesh_arrays(nm.extract_mesh(), "mesh/"))
+    out.update(_spatial_state(group, nm.table))
+    if "save_dir" in c:
+        d = os.path.join(str(c["save_dir"]), f"r{group.rank}")
+        os.makedirs(d, exist_ok=True)
+        nm.save(os.path.join(d, "scene"))
+    if "load_prefix" in c:
+        lm = _neural_map(group, c, "trainer.fuse_devices")
+        lm.load_map(str(c["load_prefix"]))
+        out.update(_spatial_state(group, lm.table, "loaded/"))
+        out.update(_mesh_arrays(lm.extract_mesh(), "loaded/mesh/"))
+    return out
+
+
+def case_sp_refuse(group, c: Arrays) -> Arrays:
+    """The ``ValueError`` of ``NeuralMap`` under
+    ``model.table_layout=spatial`` with ``trainer.optimize_devices`` = the
+    world size as well (the ray-DP optimize cannot share the ranks)."""
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.pipeline import NeuralMap
+
+    cfg = load_config([str(o) for o in c["overrides"]] + [
+        "device_type=cpu", f"trainer.fuse_devices={group.size}",
+        f"trainer.optimize_devices={group.size}"])
+    try:
+        NeuralMap(c["dims"], cfg, _params(c))
+    except ValueError as e:
+        return {"error": np.asarray(str(e))}
+    return {"error": np.asarray("")}
 
 
 def case_fuse(group, c: Arrays) -> Arrays:
@@ -278,7 +458,9 @@ CASES: Dict[str, Callable] = {
     "fuse": case_fuse, "nm_fuse": case_nm_fuse,
     "nm_optimize": case_nm_optimize, "optimize_iter": case_optimize_iter,
     "optimize_step": case_optimize_step, "pretrain": case_pretrain,
-    "trainer": case_trainer,
+    "trainer": case_trainer, "sp_fuse": case_sp_fuse,
+    "sp_decode": case_sp_decode, "sp_optimize": case_sp_optimize,
+    "sp_nm": case_sp_nm, "sp_refuse": case_sp_refuse,
 }
 
 
@@ -412,6 +594,12 @@ def tiny_inputs(n: int, seed: int = 0) -> Arrays:
           "T_wc": T_wc, "intr": intr, "n_iters": np.array(2)}
     for case in ("nm_fuse", "nm_optimize"):
         inp.update({f"{case}/{k}": v for k, v in nm.items()})
+    sp_nm = dict(nm, overrides=np.append(nm["overrides"],
+                                         "model.table_layout=spatial"))
+    for case in ("sp_nm", "sp_refuse"):
+        inp.update({f"{case}/{k}": v for k, v in sp_nm.items()})
+    inp.update({f"sp_fuse/{k[len('fuse/'):]}": v for k, v in inp.items()
+                if k.startswith("fuse/")})
 
     # a fused table for the optimize steps
     table = tbl.create_table(8, 4096, n_xyz=(24, 24, 24))
@@ -434,6 +622,11 @@ def tiny_inputs(n: int, seed: int = 0) -> Arrays:
                                        nc).astype(np.float32),
               cfg=np.array([0.1, 1, 2, 0.1, 2.0, n_rays, splits, 1e-3, 1.0]))
     inp.update({f"optimize_iter/{k}": v for k, v in it.items()})
+    inp.update({f"sp_optimize/{k}": v for k, v in it.items()})
+    inp["sp_optimize/cfg"] = it["cfg"][:-1]
+    inp.update({f"sp_decode/{k}": v for k, v in tab.items()})
+    inp.update({"sp_decode/q": (rng.rand(256, 3) * 20 + 1).astype(
+        np.float32), "sp_decode/cfg": np.array([0.1, 1])})
     gt = (rng.rand(n_rays, 3) * 0.8 - 0.4).astype(np.float32)
     st = dict(tab, uv=(rng.rand(n_rays, 2) * 24).astype(np.float32),
               gt_pts=gt, mask=np.ones(n_rays, np.float32),
@@ -455,22 +648,29 @@ def tiny_inputs(n: int, seed: int = 0) -> Arrays:
 
 
 def dryrun_multichip(n: int = 4, workdir: str | None = None) -> Dict:
-    """One step of each DP function in ``n`` gloo ranks on the CPU; raises
-    unless every rank ran, every result is finite and the replicated
-    results are bit-identical across the ranks.  Returns a summary."""
+    """One step of each DP and spatial function in ``n`` gloo ranks on the
+    CPU; raises unless every rank ran, every result is finite and the
+    replicated results (all but the spatial cases' ``shard/`` arrays) are
+    bit-identical across the ranks, and the spatial map refuses the ray-DP
+    optimize.  Returns a summary."""
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         res = run_ranks(n, list(CASES), tiny_inputs(n), workdir or tmp)
     for k, v in res[0].items():
         if v.dtype.kind == "f" and not np.all(np.isfinite(v)):
             raise AssertionError(f"{k}: non-finite values")
-        if k == "group/rank":
+        if k == "group/rank" or "/shard/" in k:
             continue
         for r in range(1, n):
             if not np.array_equal(v, res[r][k]):
                 raise AssertionError(f"{k}: rank {r} differs from rank 0")
+    if "cannot be combined" not in str(res[0]["sp_refuse/error"]):
+        raise AssertionError("the spatial map took the ray-DP optimize")
     return {"ranks": n, "cases": list(CASES), "seconds": time.time() - t0,
             "fuse_voxels": int(len(res[0]["fuse/keys"])),
+            "spatial_voxels": int(len(res[0]["sp_nm/keys"])),
+            "spatial_losses": res[0]["sp_nm/losses"].tolist(),
+            "spatial_mesh_vertices": int(len(res[0]["sp_nm/mesh/vertices"])),
             "optimize_iter_losses": res[0]["optimize_iter/losses"].tolist(),
             "pretrain_losses": res[0]["pretrain/losses"].tolist()}
 

@@ -3,17 +3,20 @@
 Counterpart of bnv_fusion_tpu/pipeline.py:36-1546 (with demo mode's
 incremental mesh, :1398-1496), with the data-parallel fuse and optimize of
 ``trainer.fuse_devices`` / ``optimize_devices`` over a ``torch.distributed``
-process group (``parallel/``); the region-sharded table layout is not
-ported.  The table routes as
-``tables.create_table`` does (dense, or blocks for big grids), and the TSDF
-prior is dense or, for big scenes (``model.tsdf_layout``), block-major
-with frustum-exact sparse updates.  PyTorch runs eagerly, so the JAX
+process group (``parallel/``).  The table routes as
+``tables.create_table`` does (dense, or blocks for big grids), or under
+``model.table_layout=spatial`` is region-sharded over the
+``trainer.fuse_devices`` ranks (``parallel/spatial.py``: each rank holds
+one slab of the map, and decode, optimize, mesh and save meet in
+collectives, so every rank calls them).  The TSDF prior is dense or, for
+big scenes (``model.tsdf_layout``), block-major with frustum-exact sparse
+updates, replicated on every rank.  PyTorch runs eagerly, so the JAX
 package's jit caches have no counterpart, and a width change (``_widen``)
 needs no rebuild.  The device
 comes from the config's ``device_type``: ``tpu`` (the repo default, meaning
 "the accelerator") and ``cuda`` select CUDA and raise where there is none;
-``cpu`` is for tests.  Options this port does not implement yet raise
-``NotImplementedError`` naming their ROADMAP item (``check_supported``).
+``cpu`` is for tests.  Option values the layout or the process group
+cannot serve raise ``ValueError`` (``check_supported``).
 """
 
 from __future__ import annotations
@@ -53,20 +56,31 @@ def resolve_device(device_type) -> torch.device:
 
 
 def check_supported(config) -> None:
-    """Raise for every option value this port does not run: the
-    region-sharded table layout (``NotImplementedError`` naming its ROADMAP
-    item; every other ``model.table_layout`` runs as ``auto``, as in the
-    JAX package), and ``trainer.*_devices`` counts the process group cannot
-    serve (``ValueError``, ``parallel.resolve_count``)."""
+    """Raise ``ValueError`` for the option values this run cannot serve:
+    ``trainer.*_devices`` counts the process group cannot
+    (``parallel.resolve_count``), and ``model.table_layout=spatial`` with
+    ``trainer.fuse_devices`` below 2 or with ``optimize_devices`` above 1,
+    as the JAX package refuses them (pipeline.py:138-140, :1116-1121; it
+    refuses the second when the optimize starts, the port before the
+    fuse).  Every other ``model.table_layout`` runs as ``auto``, as in the
+    JAX package."""
     from bnv_fusion_tpu_torch.parallel import resolve_count
 
     m, t = config.model, config.trainer
-    if str(getattr(m, "table_layout", "auto")) == "spatial":
-        raise NotImplementedError(
-            "model.table_layout=spatial (the region-sharded map, slice "
-            "14b) is not ported yet (ROADMAP Queue 1 item 14)")
-    for name in ("fuse_devices", "optimize_devices", "pretrain_devices"):
-        resolve_count(getattr(t, name, 1), f"trainer.{name}")
+    n = {name: resolve_count(getattr(t, name, 1), f"trainer.{name}")
+         for name in ("fuse_devices", "optimize_devices",
+                      "pretrain_devices")}
+    if str(getattr(m, "table_layout", "auto")) != "spatial":
+        return
+    if n["fuse_devices"] <= 1:
+        raise ValueError("model.table_layout=spatial needs "
+                         "trainer.fuse_devices > 1")
+    if n["optimize_devices"] > 1:
+        raise ValueError(
+            "trainer.optimize_devices > 1 (ray DP) cannot be combined "
+            "with model.table_layout=spatial — the spatial layout already "
+            "owns the device mesh; spatial maps optimize through the "
+            "single-program step on owner-assembled rows")
 
 
 class Timer:
@@ -141,8 +155,31 @@ class NeuralMap:
         self.n_xyz = tuple(int(v) for v in n_xyz)
         if capacity is None:
             capacity = int(getattr(m, "table_capacity", 1 << 21))
-        self.table = tbl.create_table(self.feat_dims, capacity,
-                                      n_xyz=self.n_xyz, device=self.device)
+        # model.table_layout=spatial: the map region-sharded over the
+        # trainer.fuse_devices ranks (check_supported asks for > 1), with
+        # the grid's minor axis padded so that n_vox divides them (the
+        # padded voxels lie beyond bound_max and are never observed) and
+        # the capacity rounded up to a multiple of them, as in the JAX
+        # package; decode, optimize and mesh read through OwnerRows
+        self._spatial = str(getattr(m, "table_layout", "auto")) == "spatial"
+        self._rows = None
+        if self._spatial:
+            from bnv_fusion_tpu_torch.parallel import spatial
+
+            d = self._fuse_devices
+            nx, ny, nz = self.n_xyz
+            if (nx * ny * nz) % d:
+                nz = -(-nz // d) * d
+            self.n_xyz = (nx, ny, nz)
+            capacity = -(-int(capacity) // d) * d
+            self.table = spatial.create_spatial_table(
+                self._group, self.n_xyz, capacity, self.feat_dims,
+                self.device)
+            self._rows = spatial.OwnerRows(self._group)
+        else:
+            self.table = tbl.create_table(self.feat_dims, capacity,
+                                          n_xyz=self.n_xyz,
+                                          device=self.device)
 
         self.tsdf_voxel_size = float(getattr(m, "tsdf_voxel_size", 0.025))
         # model.fuse_color: an RGB running mean in the prior, read by
@@ -257,12 +294,20 @@ class NeuralMap:
                  f"{len(g)} frames -> max_unique_per_frame={mu} "
                  f"cells={u_cell}")
 
+    def _overflow_counter(self) -> torch.Tensor:
+        """The table's overflow counter on the device; under the spatial
+        layout each shard counts its own drops, summed over the ranks here
+        (so every rank widens alike)."""
+        if self._spatial:
+            return self._group.all_reduce(self.table.overflow)
+        return self.table.overflow
+
     def _overflow_copy(self):
         """A copy of the overflow counter as it stands in the queue now:
         the table is written in place, so a later read of the live counter
         would see later drops.  On CUDA the copy lands in pinned host memory
         behind an event, so reading it later waits only for that event."""
-        c = self.table.overflow
+        c = self._overflow_counter()
         if c.device.type != "cuda":
             return c.clone(), None
         host = torch.empty((), dtype=c.dtype, pin_memory=True)
@@ -305,8 +350,7 @@ class NeuralMap:
         # the queued copies (and the cumulative counter) record drops under
         # the old widths: fast-forward so they cannot widen a second time
         self._overflow_lag.clear()
-        self._overflow_seen = max(self._overflow_seen,
-                                  int(self.table.overflow))
+        self._overflow_seen = max(self._overflow_seen, self.overflow)
 
     def _model_dtype(self, name: str) -> torch.dtype:
         """An operand precision of the config's model: ``fuse_dtype`` (the
@@ -414,8 +458,16 @@ class NeuralMap:
     @property
     def overflow(self) -> int:
         """Voxels/cells dropped by the static compaction widths (0 = every
-        observation landed)."""
-        return int(self.table.overflow)
+        observation landed); under the spatial layout the shards' counts
+        summed by one all-reduce, so every rank must read it."""
+        return int(self._overflow_counter())
+
+    @property
+    def mesh_is_collective(self) -> bool:
+        """True under the spatial layout: ``extract_mesh``,
+        ``extract_mesh_incremental`` and ``save`` meet the other ranks in
+        collectives, so every rank calls them (rank 0 alone writes)."""
+        return self._spatial
 
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -444,16 +496,24 @@ class NeuralMap:
     def _fuse_sharded(self, depth, T_wc, intr, rgb=None) -> fusion.FrameStats:
         """The per-frame step under ``trainer.fuse_devices`` > 1: the
         frame's points (padded with valid=False rows to a multiple of the
-        group's size) through ``parallel.dp.make_sharded_fuse_frame`` at the
-        current widths, then the prior (and its colour) through the
-        single-device route, replicated on every rank."""
-        from bnv_fusion_tpu_torch.parallel import dp
+        group's size) through ``parallel.dp.make_sharded_fuse_frame`` (or,
+        under the spatial layout, ``parallel.spatial.
+        make_spatial_fuse_frame``) at the current widths, then the prior
+        (and its colour) through the single-device route, replicated on
+        every rank."""
+        from bnv_fusion_tpu_torch.parallel import dp, spatial
 
         max_unique, mu_cells = self._width_values()
-        step = dp.make_sharded_fuse_frame(
-            self._group, self.params, self.voxel_size, self.min_pts_in_grid,
-            self.table, max_unique=max_unique, max_unique_cells=mu_cells,
-            compute_dtype=self._model_dtype("fuse_dtype"))
+        kw = dict(max_unique=max_unique, max_unique_cells=mu_cells,
+                  compute_dtype=self._model_dtype("fuse_dtype"))
+        if self._spatial:
+            step = spatial.make_spatial_fuse_frame(
+                self._group, self.params, self.voxel_size,
+                self.min_pts_in_grid, **kw)
+        else:
+            step = dp.make_sharded_fuse_frame(
+                self._group, self.params, self.voxel_size,
+                self.min_pts_in_grid, self.table, **kw)
         pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
         pad = -pts_w.shape[0] % self._fuse_devices
         if pad:
@@ -467,7 +527,7 @@ class NeuralMap:
 
     def integrate(self, frame: Dict[str, Any]):
         """Fuse one frame and keep its depth + pose for the optimization ray
-        pool (through the points-sharded DP step when
+        pool (through the points-sharded DP or spatial step when
         ``trainer.fuse_devices`` > 1).  Frames with NaN poses are
         skipped."""
         if np.any(np.isnan(np.asarray(frame["T_wc"]))):
@@ -640,7 +700,10 @@ class NeuralMap:
         step (``parallel.dp.make_sharded_optimize_iter``: the sequential
         chunk schedule, whatever ``model.parallel_ray_chunks`` says) on the
         same frames, pixels and uniforms as one device draws for the seed;
-        error-guided sampling is refused there, as in the JAX package."""
+        error-guided sampling is refused there, as in the JAX package.
+        Under the spatial layout every rank runs the single-device step on
+        its shard, with the corner rows assembled over the ranks
+        (``parallel.spatial.OwnerRows``), on the same draws."""
         if not self.frames:
             return
         m, tr = self.config.model, self.config.trainer
@@ -714,9 +777,10 @@ class NeuralMap:
         self.table.weights = state.weights
 
     def make_optim_step(self, lr: float):
-        """The optimize step (``optimize.make_optimize_step``, or under
+        """The optimize step (``optimize.make_optimize_step``; under
         ``trainer.optimize_devices`` > 1 the ray-DP
-        ``parallel.dp.make_sharded_optimize_iter``) at ``lr`` with this
+        ``parallel.dp.make_sharded_optimize_iter``; under the spatial
+        layout on ``parallel.spatial.OwnerRows``) at ``lr`` with this
         map's geometry and the config's model options."""
         m = self.config.model
         if self._optimize_devices > 1:
@@ -747,7 +811,8 @@ class NeuralMap:
             parallel_chunks=bool(getattr(m, "parallel_ray_chunks", False)),
             n_fine=int(getattr(m.ray_tracer, "n_fine", 0) or 0),
             n_coarse=int(getattr(m.ray_tracer, "n_coarse", 0) or 0),
-            grad_scatter=str(getattr(m, "grad_scatter", "sortreduce")))
+            grad_scatter=str(getattr(m, "grad_scatter", "sortreduce")),
+            rows=self._rows)
 
     def _error_map(self, i: int, depth: torch.Tensor) -> torch.Tensor:
         """Frame ``i``'s error map, made uniform at its first use."""
@@ -787,7 +852,9 @@ class NeuralMap:
         on CUDA it runs the fused decode kernel, on the decoder packed once
         here (the weights are fixed while meshing); otherwise the plain
         decode in ``model.mesh_decode_layout`` (null: ``decode_layout``).
-        Both mesh paths decode through this."""
+        Both mesh paths decode through this; under the spatial layout on
+        owner-assembled rows (``parallel.spatial.OwnerRows``), so every
+        rank must call it on the same batches."""
         m = self.config.model
         use_fused = (self.device.type != "cpu" and
                      bool(getattr(m, "use_fused_decode_kernel", False)))
@@ -813,10 +880,22 @@ class NeuralMap:
                     self.bound_min, self.voxel_size, self.min_pts_in_grid,
                     sdf_delta=sdf_delta, n_xyz=self.n_xyz, is_coords=True,
                     use_fused_kernel=use_fused, masked_fill=float("nan"),
-                    layout=layout, packed_decoder=packed)
+                    layout=layout, packed_decoder=packed, rows=self._rows)
             return out.to(fetch_dt).to(torch.float32)
 
         return decode_fn, sdf_delta
+
+    def _active_entries(self, with_features: bool = True):
+        """Host (keys, features or None, weights, hits) of the allocated
+        voxels: ``tables.active_entries`` in slot order, or under the
+        spatial layout every shard's, gathered on every rank in flat-id
+        order (``parallel.spatial.spatial_active_entries``)."""
+        if self._spatial:
+            from bnv_fusion_tpu_torch.parallel import spatial
+
+            return spatial.spatial_active_entries(self._group, self.table,
+                                                  with_features)
+        return tbl.active_entries(self.table, with_features)[:4]
 
     def _mesh_decode_batch(self) -> int:
         """Lattice points per decode batch, for both mesh paths."""
@@ -847,11 +926,11 @@ class NeuralMap:
         caller's thread: a copy issued from the worker would queue behind
         the optimize launches.  The worker runs numpy and the native
         lattice builder only.  A no-op with ``model.mesh_prefetch=false``,
-        when a prefetch of this fuse epoch exists, or on a table without
-        ``slot_flat`` (a block table: ``extract_mesh`` builds in line), as
-        in the JAX package."""
+        when a prefetch of this fuse epoch exists, on a table without
+        ``slot_flat`` (a block table: ``extract_mesh`` builds in line) or
+        under the spatial layout, as in the JAX package."""
         m = self.config.model
-        if not bool(getattr(m, "mesh_prefetch", True)) or \
+        if not bool(getattr(m, "mesh_prefetch", True)) or self._spatial or \
                 not hasattr(self.table, "slot_flat"):
             return
         scale = int(getattr(m, "mesh_lattice_scale", 2))
@@ -916,11 +995,13 @@ class NeuralMap:
         prefetched lattice (``prefetch_mesh_lattice``) is filtered to the
         same gate, through the same ``_mesh_weights``, in place of the
         in-line build.  Under ``model.fuse_color`` the vertices take their
-        colours from the prior (``tsdf.sample_color``)."""
+        colours from the prior (``tsdf.sample_color``).  Under the spatial
+        layout every rank meshes (the keys from
+        ``parallel.spatial.spatial_active_entries``, no prefetch)."""
         m = self.config.model
         if batch_size is None:
             batch_size = self._mesh_decode_batch()
-        box = self._prefetched_lattice()
+        box = None if self._spatial else self._prefetched_lattice()
         lattice = active = None
         if box is not None:
             n = box["n"]
@@ -933,8 +1014,8 @@ class NeuralMap:
             sel = gate[box["owner_rows"]]
             lattice = (points, corner_idx[sel], cells[sel])
         else:
-            keys, _, weights, hits, _ = tbl.active_entries(
-                self.table, with_features=False)
+            keys, _, weights, hits = self._active_entries(
+                with_features=False)
             active = keys[self._mesh_weights(weights, hits) >=
                           self.min_pts_in_grid]
             if len(active) == 0:
@@ -992,14 +1073,20 @@ class NeuralMap:
 
     def incremental_mesh_inputs(self):
         """What the incremental mesher reads: (decode_fn, active voxel keys
-        [n, 3] int32 in slot order, their ``_mesh_weights``, the prior in
-        decode units on the host, their slot ids)."""
+        [n, 3] int32, their ``_mesh_weights``, the prior in decode units on
+        the host, and their slot ids, or under the spatial layout their
+        features [n, F]: the keys then come from every shard, in flat-id
+        order, and the mesher diffs the latents on the host by voxel
+        key)."""
         decode, sdf_delta = self._mesh_decoder(True)
-        keys, _, weights, hits, slots = tbl.active_entries(
-            self.table, with_features=False)
+        if self._spatial:
+            keys, last, weights, hits = self._active_entries()
+        else:
+            keys, _, weights, hits, last = tbl.active_entries(
+                self.table, with_features=False)
         return (decode, keys.astype(np.int32),
                 self._mesh_weights(weights, hits), sdf_delta.cpu().numpy(),
-                slots)
+                last)
 
     def extract_mesh_incremental(self) -> Optional[mesh_mod.Mesh]:
         """Demo-mode mesh: only voxels whose latents or TSDF-prior cells
@@ -1007,8 +1094,11 @@ class NeuralMap:
         VolumeList mesh cache).  Change detection is exact: a per-row diff
         on the device plus a dilated diff of the dense prior
         (``model.incremental_delta_tol`` bounds how small a prior move still
-        re-meshes; 0.0 = every change).  ``self.inc_mesher.last_stats``
-        counts the re-decoded and eligible voxels."""
+        re-meshes; 0.0 = every change).  Under the spatial layout the
+        latents are diffed on the host by voxel key (the gathered entries;
+        the JAX package does the same), and every rank meshes.
+        ``self.inc_mesher.last_stats`` counts the re-decoded and eligible
+        voxels."""
         from bnv_fusion_tpu_torch.incremental_mesh import IncrementalMesher
 
         if self.inc_mesher is None:
@@ -1019,18 +1109,26 @@ class NeuralMap:
                 delta_tol=float(getattr(self.config.model,
                                         "incremental_delta_tol", 0.0)),
                 device=self.device)
-        decode, keys, weights, delta, slots = self.incremental_mesh_inputs()
-        changed_rows, snap = self._inc_changed_mask(slots)
-        mesh = self.inc_mesher.update(
-            decode, keys, weights, None, min_weight=self.min_pts_in_grid,
-            sdf_delta=delta, changed_rows=changed_rows)
-        self._inc_prev = snap  # committed only after a successful update
+        decode, keys, weights, delta, last = self.incremental_mesh_inputs()
+        if self._spatial:
+            mesh = self.inc_mesher.update(
+                decode, keys, weights, last, min_weight=self.min_pts_in_grid,
+                sdf_delta=delta)
+        else:
+            changed_rows, snap = self._inc_changed_mask(last)
+            mesh = self.inc_mesher.update(
+                decode, keys, weights, None, min_weight=self.min_pts_in_grid,
+                sdf_delta=delta, changed_rows=changed_rows)
+            self._inc_prev = snap  # committed only after a successful update
         return mesh if len(mesh.vertices) else None
 
     def save(self, path_prefix: str):
         """``<prefix>_sparse_volume.npz`` (the JAX package's format) and
-        ``<prefix>_tsdf.npy`` (metric prior)."""
-        keys, feats, weights, hits, _ = tbl.active_entries(self.table)
+        ``<prefix>_tsdf.npy`` (metric prior).  Under the spatial layout
+        every rank gathers the entries, and rank 0 alone writes."""
+        keys, feats, weights, hits = self._active_entries()
+        if self._spatial and self._group.rank != 0:
+            return
         ckpt_io.save_state(path_prefix + "_sparse_volume.npz", {
             "active_coordinates": keys,
             "features": feats,
@@ -1045,11 +1143,21 @@ class NeuralMap:
 
     def load_volume(self, path: str):
         """Replace the table by the entries of a saved
-        ``*_sparse_volume.npz`` (either package's)."""
+        ``*_sparse_volume.npz`` (either package's).  Under the spatial
+        layout each rank keeps the entries its slab owns
+        (``parallel.spatial.load_spatial_entries``; the JAX package loads an
+        unsharded table there, whose features its spatial readers then read
+        at the wrong rows, ROADMAP Queue 3)."""
         data = ckpt_io.load_state(path)
-        self.table = tbl.load_entries(
-            self.table, data["active_coordinates"], data["features"],
-            data["weights"], data["num_hits"])
+        entries = (data["active_coordinates"], data["features"],
+                   data["weights"], data["num_hits"])
+        if self._spatial:
+            from bnv_fusion_tpu_torch.parallel import spatial
+
+            self.table = spatial.load_spatial_entries(
+                self._group, self.table, *entries)
+        else:
+            self.table = tbl.load_entries(self.table, *entries)
         # a new key set: a lattice prefetched from the old table is stale
         # even where the counts match (the JAX package does not bump here)
         self._fuse_epoch += 1

@@ -126,18 +126,19 @@ def prepare_render(table, rays: Rays, bound_min, voxel_size: float,
                    ray_max_dist: float, sdf_delta: Optional[torch.Tensor],
                    n_xyz, ts: Tuple[torch.Tensor, torch.Tensor],
                    n_fine: int = 0, n_coarse: int = 0,
-                   weights: Optional[torch.Tensor] = None):
+                   weights: Optional[torch.Tensor] = None, rows=None):
     """Feature-independent half of rendering: sampling + decode prep.
     ``n_fine`` / ``n_coarse`` = 0 keep the reference formula (fine =
-    2 * truncated_units, coarse = 5 * ray_max_dist).  Returns (prep, pts,
-    cam_loc)."""
+    2 * truncated_units, coarse = 5 * ray_max_dist).  ``rows`` is the
+    corner-row hook of a region-sharded table (``fusion.decode_prepare``).
+    Returns (prep, pts, cam_loc)."""
     pts, cam_loc = _sample_along_rays(rays, ts, truncated_units,
                                       truncated_dist, ray_max_dist, n_fine,
                                       n_coarse)
     n, s = pts.shape[:2]
     prep = fusion.decode_prepare(table, pts.reshape(n * s, 3), bound_min,
                                  voxel_size, sdf_delta=sdf_delta, n_xyz=n_xyz,
-                                 weights=weights)
+                                 weights=weights, rows=rows)
     return prep, pts, cam_loc
 
 

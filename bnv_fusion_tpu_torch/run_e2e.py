@@ -14,10 +14,12 @@ when ``trainer.live_viewer_port`` is set).  Then it meshes the map
 runs the global render-loss optimization, meshes again (``final.ply``),
 saves the map and prints the phase speeds and the F-scores against the
 analytic scene, in the JAX package's format.  On N devices, one process
-each (rank 0 writes the outputs):
+each (rank 0 writes the outputs), data parallel or region-sharded:
 
     torchrun --nproc_per_node=N -m bnv_fusion_tpu_torch.run_e2e \\
         trainer.fuse_devices=all trainer.optimize_devices=all
+    torchrun --nproc_per_node=N -m bnv_fusion_tpu_torch.run_e2e \\
+        model.table_layout=spatial trainer.fuse_devices=all
 """
 
 from __future__ import annotations
@@ -65,7 +67,10 @@ def run(overrides: List[str], params: Optional[Dict[str, Any]] = None
     and optimizes its replica of the map through the DP paths of
     ``trainer.fuse_devices`` / ``optimize_devices``; rank 0 alone meshes,
     evaluates, saves, logs and writes, and the others meet it at a barrier
-    before they return (``parallel.launch.distributed``)."""
+    before they return (``parallel.launch.distributed``).  Under
+    ``model.table_layout=spatial`` each rank holds one slab of the map, so
+    every rank meshes and saves with rank 0 (those are collectives), and
+    rank 0 alone writes, logs and evaluates."""
     cfg = load_config(overrides)
     with launch.distributed(getattr(cfg, "device_type", "tpu")):
         return _run(cfg, params)
@@ -84,6 +89,8 @@ def _run(cfg, params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         os.makedirs(working_dir, exist_ok=True)
 
     nmap = NeuralMap(dataset.dimensions, cfg, params, working_dir)
+    # the ranks that mesh and save: rank 0, or every rank of a spatial map
+    meshes = main or nmap.mesh_is_collective
     demo_mode = str(cfg.model.mode) == "demo"
     optim_interval = int(getattr(cfg.model, "optim_interval", 100))
     skip = int(getattr(cfg.dataset, "skip_images", 1)) or 1
@@ -122,7 +129,8 @@ def _run(cfg, params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
             nmap.timer.log("local")
             if event and nmap.frames:
                 events.append(_demo_event(nmap, idx, optim_interval, skip,
-                                          working_dir, viewer, main))
+                                          working_dir, viewer, main,
+                                          meshes))
     finally:
         if viewer is not None:
             viewer.close()
@@ -137,9 +145,9 @@ def _run(cfg, params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
             f"dropped observations — widen them or set them to 'auto'")
 
     nmap.timer.start("mesh")
-    before = nmap.extract_mesh() if main else None
+    before = nmap.extract_mesh() if meshes else None
     nmap.timer.log("mesh")
-    if before is not None:
+    if before is not None and main:
         mesh_mod.save_ply(os.path.join(working_dir, "before_optim.ply"), before)
         log.info(f"before_optim mesh: {len(before.vertices)} verts")
 
@@ -154,6 +162,9 @@ def _run(cfg, params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     nmap.optimize(n_iters=global_steps, last_frame=-1)
     nmap.timer.log("global")
     if not main:
+        if meshes:      # the spatial map's collective mesh and save
+            nmap.extract_mesh()
+            nmap.save(os.path.join(working_dir, "final"))
         return {"nmap": nmap, "before_optim": None, "final": None,
                 "fscores": {}, "working_dir": working_dir,
                 "global_steps": global_steps, "events": events}
@@ -199,12 +210,12 @@ def _run(cfg, params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 def _demo_event(nmap: NeuralMap, idx: int, optim_interval: int, skip: int,
-                working_dir: str, viewer, main: bool = True
-                ) -> Dict[str, Any]:
+                working_dir: str, viewer, main: bool = True,
+                meshes: bool = True) -> Dict[str, Any]:
     """One demo-mode event at frame ``idx``: optimize over the last
     ``optim_interval`` frames, refresh the incremental mesh, write
-    ``{idx}.ply`` and publish it (the mesh on rank 0 only).  Returns the
-    event's record."""
+    ``{idx}.ply`` and publish it (the mesh on the ``meshes`` ranks, the
+    file and the viewer on rank 0 only).  Returns the event's record."""
     last = max(0, len(nmap.frames) - optim_interval)
     n_iters = min(len(nmap.frames), optim_interval) * skip
     tm = nmap.timer.times
@@ -212,12 +223,13 @@ def _demo_event(nmap: NeuralMap, idx: int, optim_interval: int, skip: int,
     nmap.timer.start("global")
     nmap.optimize(n_iters=n_iters, last_frame=last)
     nmap.timer.log("global")
+    if meshes:
+        nmap.timer.start("inc_mesh")
+        m = nmap.extract_mesh_incremental()
+        nmap.timer.log("inc_mesh")
     if not main:
         return {"frame": idx, "optimize_iters": n_iters,
                 "optimize_s": tm["global"] - t_opt}
-    nmap.timer.start("inc_mesh")
-    m = nmap.extract_mesh_incremental()
-    nmap.timer.log("inc_mesh")
     st = nmap.inc_mesher.last_stats
     rec = {"frame": idx, "optimize_iters": n_iters,
            "optimize_s": tm["global"] - t_opt,

@@ -86,9 +86,9 @@ def create_block_table(n_xyz, capacity: int, feat_dims: int,
         raise ValueError(
             f"voxel grid {n_xyz} has {n_vox} cells; flat ids exceed int32 — "
             "use a coarser voxel_size.  (Scenes that fit int32 ids but not "
-            "one card's memory need the region-sharded map, "
-            "model.table_layout=spatial, ROADMAP Queue 1 item 14b, not "
-            "ported yet; the flat-id ceiling is int32 in every layout)")
+            "one card's memory take the region-sharded map over several "
+            "cards, model.table_layout=spatial; the flat-id ceiling is "
+            "int32 in every layout)")
     capacity = -(-int(capacity) // BLOCK_SLOTS) * BLOCK_SLOTS
     return BlockIndexedTable(n_xyz, capacity, feat_dims, device)
 

@@ -30,7 +30,9 @@ def run(overrides):
     path prefix for callers that check them.  Under torchrun every rank
     fuses its replica (``trainer.fuse_devices``), rank 0 alone meshes and
     saves, and every rank returns once the saved map exists (the refiner
-    of ``scripts.run_inference --mode fuse_refine`` reads it next)."""
+    of ``scripts.run_inference --mode fuse_refine`` reads it next).  Under
+    ``model.table_layout=spatial`` every rank meshes and saves with rank 0
+    (collectives over the slabs of the map), and rank 0 alone writes."""
     cfg = load_config(list(overrides))
     with launch.distributed(getattr(cfg, "device_type", "tpu")):
         return _run(cfg)
@@ -50,6 +52,9 @@ def _run(cfg):
     for i in range(len(dataset)):
         nmap.integrate(dataset[i])
     if not launch.is_main_process():
+        if nmap.mesh_is_collective:
+            nmap.extract_mesh()
+            nmap.save(prefix)
         launch.barrier()
         return {"nmap": nmap, "mesh": None, "prefix": prefix}
     os.makedirs(out_dir, exist_ok=True)

@@ -144,6 +144,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
      limit: DP and single per-frame fuse ms per frame (CUDA events,
      medians), DP and single optimize s/iter, elements all-gathered per
      frame.  The phase takes its process group down at the end.
+ 12. spatial: the region-sharded map (bnv_fusion_tpu_torch.parallel.spatial)
+     at world size 1 under NCCL on cuda:0 (NeuralMap refuses
+     model.table_layout=spatial below 2 devices, as the JAX package does,
+     and one card takes one NCCL rank, so the phase gives a NeuralMap a
+     SpatialTable, the state NeuralMap's spatial routing builds, and drives
+     its spatial methods): the e2e phase's 48 frames at bench.py's point
+     fused through make_spatial_fuse_frame and, frame by frame, through
+     fusion.fuse_frame_cellsort: tables equal by voxel key bit for bit;
+     the spatial map meshed by NeuralMap.extract_mesh (keys from
+     spatial_active_entries, the decode on OwnerRows; fused_corner_decode
+     launched, counts zeroed just before, read just after) to the single
+     map's vertex and face counts; SP_OPT_ITERS iterations of
+     optimize.make_optimize_step on OwnerRows against the plain step on the
+     same drawn pixels and uniforms: losses equal, latents and bumped
+     weights equal bit for bit (at world 1 every corner is owned, so the
+     steps compute the same sums: tighter than tests/test_torch_optimize.py's
+     tolerance); the map saved by NeuralMap.save and loaded into a fresh
+     spatial map by NeuralMap.load_volume (load_spatial_entries): equal by
+     key bit for bit.  One line each, with the card's name and power limit:
+     spatial and single per-frame fuse ms per frame (CUDA events, medians),
+     spatial and single optimize s/iter, spatial and single mesh s, the
+     shard's bytes, elements all-reduced per optimize iteration and
+     all-gathered per fuse frame.  The phase takes its process group down
+     at the end.
 The e2e phase also holds the final mesh's optimize-overlapped lattice
 prefetch: a re-extraction through it launches the decode and equals the
 in-line build (model.mesh_prefetch=false) bit for bit; both are timed,
@@ -308,6 +332,8 @@ SDF_GRAD_FD_SHARE = 0.99
 PAR_OPT_ITERS = 16
 PAR_LOSS_RTOL = 1e-5
 PAR_PRE_RTOL, PAR_PRE_ATOL = 1e-5, 2e-6
+# the spatial phase: optimize iterations against the single-device step
+SP_OPT_ITERS = 16
 PRETRAIN_OVERRIDES = ["model=fusion_pointnet_model",
                       "dataset=synthetic_patches", "dataset.num_patches=1024",
                       "trainer.max_epochs=1"]
@@ -2687,6 +2713,212 @@ def phase_parallel(tmp, params, card):
         launch.shutdown()
 
 
+def as_spatial(nm, group):
+    """Give ``nm`` an empty SpatialTable of its grid and capacity over
+    ``group`` and the spatial routing's state (what NeuralMap builds under
+    model.table_layout=spatial, which it refuses below 2 devices)."""
+    from bnv_fusion_tpu_torch.parallel import spatial
+
+    nm.table = spatial.create_spatial_table(
+        group, nm.n_xyz, nm.table.capacity, nm.feat_dims, nm.device)
+    nm._spatial, nm._group = True, group
+    nm._rows = spatial.OwnerRows(group)
+    return nm
+
+
+def sp_by_key(group, nm):
+    """(keys, features, weights, hits) of a spatial map, sorted by key."""
+    import numpy as np
+    from bnv_fusion_tpu_torch.parallel import spatial
+
+    keys, feats, w, h = spatial.spatial_active_entries(group, nm.table)
+    order = np.lexsort(keys.T[::-1])
+    return keys[order], feats[order], w[order], h[order]
+
+
+def sp_optimize(nsp, none, group, card):
+    """SP_OPT_ITERS iterations of optimize.make_optimize_step on
+    spatial.OwnerRows on the spatial map against the plain step on the
+    single map, on the same drawn pixels and uniforms: losses, latents and
+    bumped weights equal bit for bit (by key); both timed (single,
+    spatial, spatial, single)."""
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import optimize, render, tsdf
+    from bnv_fusion_tpu_torch.parallel import spatial
+
+    kw = dict(voxel_size=none.voxel_size,
+              min_pts_in_grid=none.min_pts_in_grid,
+              truncated_units=none.truncated_units,
+              truncated_dist=none.truncated_dist,
+              ray_max_dist=none.ray_max_dist, n_rays=none.sampling_size,
+              train_ray_splits=none.train_ray_splits, lr=1e-3)
+    steps = {"one": optimize.make_optimize_step(none.params, **kw),
+             "sp": optimize.make_optimize_step(
+                 nsp.params, rows=spatial.OwnerRows(group), **kw)}
+    maps = {"one": none, "sp": nsp}
+    delta = tsdf.prepare_sdf_delta(none.tsdf_vol, none.tsdf_voxel_size,
+                                   none.truncated_dist, none.sdf_delta_weight)
+    g = torch.Generator().manual_seed(12)
+    nf, nc = none.truncated_units * 2, int(none.ray_max_dist * 5)
+    draws = []
+    for i in range(SP_OPT_ITERS):
+        f = none.frames[i % len(none.frames)]
+        pix = torch.randperm(f["depth"].numel(),
+                             generator=g)[:none.sampling_size]
+        uni = [render.draw_sampling_uniforms(g, none.train_ray_splits, nf,
+                                             nc, none.device)
+               for _ in range(none.sampling_size // none.train_ray_splits)]
+        draws.append((f, pix, uni))
+
+    def run(which):
+        nm, step = maps[which], steps[which]
+        state = optimize.init_optim_state(nm.table)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for f, pix, uni in draws:
+            state, loss = step(state, nm.table, f["depth"], f["T_wc"],
+                               f["intr"], nm.bound_min, nm.n_xyz, delta,
+                               pixel_ids=pix, uniforms=uni)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        return ((time.time() - t0) / SP_OPT_ITERS, state,
+                torch.stack(losses).cpu().numpy())
+
+    out, times = {}, []
+    for which in ("one", "sp", "sp", "one"):
+        group.traffic.clear()
+        t, state, losses = run(which)
+        times.append(t)
+        out[which] = (state, losses)
+        if which == "sp":
+            reduced = sum(n for op, n, _ in group.traffic
+                          if op.startswith("all_reduce")) / SP_OPT_ITERS
+    (s1, l1), (s2, l2) = out["one"], out["sp"]
+    if not np.array_equal(l1, l2):
+        raise AssertionError(f"spatial optimize losses {l2} vs single {l1}")
+    for nm, s in ((none, s1), (nsp, s2)):
+        nm.table.features, nm.table.weights = s.features, s.weights
+    same_table("spatial optimize vs single step", sp_by_key(group, nsp),
+               table_by_key(none))
+    print(f"  spatial optimize: {SP_OPT_ITERS} iterations, losses equal "
+          f"(first {l1[0]:.6f}, last {l1[-1]:.6f}), latents and bumped "
+          f"weights equal bit for bit by key; spatial {times[1]:.4f} / "
+          f"{times[2]:.4f} s/iter, single {times[0]:.4f} / {times[3]:.4f} "
+          f"s/iter (single, spatial, spatial, single); {reduced:.0f} "
+          f"elements all-reduced per spatial iteration [{card}]",
+          flush=True)
+
+
+def phase_spatial(tmp, params, card):
+    """The region-sharded map at world size 1 under NCCL (see the module
+    docstring)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bnv_fusion_tpu_torch import fusion
+    from bnv_fusion_tpu_torch.config import load_config
+    from bnv_fusion_tpu_torch.datasets import get_dataset
+    from bnv_fusion_tpu_torch.kernels import _build
+    from bnv_fusion_tpu_torch.parallel import launch, make_mesh, spatial
+    from bnv_fusion_tpu_torch.pipeline import NeuralMap
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    launch.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"expected NCCL at world 1, got "
+                                 f"{dist.get_backend()} at "
+                                 f"{dist.get_world_size()}")
+        group = make_mesh(1)
+        cfg = load_config(OFFLINE_OVERRIDES + [f"output_dir={tmp}"])
+        ds = get_dataset(cfg, "val")
+        frames = [ds[i] for i in range(len(ds))]
+        none = NeuralMap(ds.dimensions, cfg, params)
+        nsp = as_spatial(NeuralMap(ds.dimensions, cfg, params), group)
+        mu = int(cfg.model.max_unique_per_frame)
+        step = spatial.make_spatial_fuse_frame(group, nsp.params, VOXEL,
+                                               nsp.min_pts_in_grid,
+                                               max_unique=mu)
+        group.traffic.clear()
+        t_sp, t_one = [], []
+        par_fuse_pass(nsp, frames, lambda p, n, v: step(
+            nsp.table, p, n, v, nsp.bound_min, nsp.bound_max), t_sp)
+        gathered = sum(n for op, n, _ in group.traffic
+                       if op == "all_gather") / len(frames)
+        par_fuse_pass(none, frames, lambda p, n, v: fusion.fuse_frame_cellsort(
+            none.table, none.params, p, n, v, none.bound_min, none.bound_max,
+            VOXEL, none.min_pts_in_grid, max_unique=mu), t_one)
+        for nm in (nsp, none):
+            if nm.overflow != 0:
+                raise AssertionError(f"spatial fuse overflow {nm.overflow}")
+        a, b = sp_by_key(group, nsp), table_by_key(none)
+        same_table("spatial fuse vs per-frame fuse", a, b)
+        print(f"  spatial fuse: {len(frames)} frames, {len(a[0])} voxels, "
+              f"spatial table == per-frame table bit for bit by key",
+              flush=True)
+        print(f"  spatial fuse: spatial {np.median(t_sp):.3f} ms/frame, "
+              f"single per-frame {np.median(t_one):.3f} ms/frame (CUDA "
+              f"events, medians of {len(frames)}); {gathered:.0f} elements "
+              f"all-gathered per frame; the shard holds "
+              f"{nsp.table.nbytes()} bytes (slot map {nsp.table.nv_shard} "
+              f"voxels, {nsp.table.capacity} rows) [{card}]", flush=True)
+
+        def timed_mesh(nm):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = nm.extract_mesh()
+            torch.cuda.synchronize()
+            return m, time.time() - t0
+
+        # single, spatial, spatial, single: the first mesh of the phase
+        # pays the decoder's packing and the first launches
+        m_one, t_one0 = timed_mesh(none)
+        _build.LAUNCHES.clear()
+        m_sp, t_sp0 = timed_mesh(nsp)
+        n_dec = _build.LAUNCHES.get("fused_corner_decode", 0)
+        _, t_sp1 = timed_mesh(nsp)
+        _, t_one1 = timed_mesh(none)
+        if n_dec <= 0:
+            raise AssertionError("the spatial map's mesh never launched "
+                                 "fused_corner_decode")
+        if m_sp is None or m_one is None or \
+                len(m_sp.vertices) != len(m_one.vertices) or \
+                len(m_sp.faces) != len(m_one.faces):
+            raise AssertionError("the spatial map's mesh counts differ from "
+                                 "the single map's")
+        print(f"  spatial mesh: {len(m_sp.vertices)} vertices, "
+              f"{len(m_sp.faces)} faces (== the single map's); "
+              f"fused_corner_decode launches {n_dec}; spatial "
+              f"{t_sp0:.3f} / {t_sp1:.3f} s, single {t_one0:.3f} / "
+              f"{t_one1:.3f} s (single, spatial, spatial, single) [{card}]",
+              flush=True)
+
+        for nm in (nsp, none):
+            for f in frames:
+                nm.frames.append({"depth": nm._tensor(f["depth"]),
+                                  "T_wc": nm._tensor(f["T_wc"]),
+                                  "intr": nm._tensor(f["intr_mat"])})
+        sp_optimize(nsp, none, group, card)
+
+        os.makedirs(tmp, exist_ok=True)
+        prefix = os.path.join(tmp, "spatial")
+        nsp.save(prefix)
+        loaded = as_spatial(NeuralMap(ds.dimensions, cfg, params), group)
+        loaded.load_volume(prefix + "_sparse_volume.npz")
+        same_table("spatial map saved and loaded", sp_by_key(group, loaded),
+                   sp_by_key(group, nsp))
+        print(f"  spatial save/load: {len(a[0])} entries, the loaded map "
+              f"== the saved one bit for bit by key", flush=True)
+    finally:
+        launch.shutdown()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bnv_fusion_tpu_torch")):
         return fail("bnv_fusion_tpu_torch/ not found beside chip_smoke.py; "
@@ -2834,6 +3066,12 @@ def main() -> int:
         t0 = time.time()
         phase_parallel(os.path.join(tmp, "parallel"), params, card)
         print(f"phase parallel: {time.time() - t0:.1f} s", flush=True)
+
+        print("phase spatial: the region-sharded map at world 1 under NCCL",
+              flush=True)
+        t0 = time.time()
+        phase_spatial(os.path.join(tmp, "spatial"), params, card)
+        print(f"phase spatial: {time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -187,17 +187,17 @@ def test_cuda_device_type_raises_without_cuda(monkeypatch):
     ("trainer.fuse_devices=2", ValueError, "requested 2 devices, have 1"),
     ("trainer.optimize_devices=2", ValueError, "requested 2 devices, have 1"),
     ("trainer.pretrain_devices=2", ValueError, "requested 2 devices, have 1"),
-    ("model.table_layout=spatial", NotImplementedError,
-     r"ROADMAP Queue 1 item 14\)")])
+    ("model.table_layout=spatial", ValueError,
+     r"needs trainer\.fuse_devices > 1")])
 def test_unsupported_options_raise(override, error, match):
     """A device count above 1 without a process group of that size raises
     the launcher's ValueError (it names torchrun); the region-sharded
-    layout is not ported (item 14)."""
+    layout on one device raises the JAX package's ValueError."""
     cfg = tload_config(OVERRIDES + ["device_type=cpu", override])
     with pytest.raises(error, match=match) as info:
         TNeuralMap(np.array([2.6, 2.6, 1.6], np.float32), cfg,
                    run_e2e.load_params(cfg))
-    if error is ValueError:
+    if "_devices" in override:
         assert "torchrun --nproc_per_node=2" in str(info.value)
 
 

@@ -5,6 +5,7 @@ single-process run, the multi-rank dry run (the counterpart of
 __graft_entry__.dryrun_multichip), and the parallel package without jax.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -125,14 +126,16 @@ def test_dryrun_multichip_runs(tmp_path):
     out = dryrun.dryrun_multichip(4, workdir=str(tmp_path))
     assert out["ranks"] == 4 and out["fuse_voxels"] > 0
     assert set(out["cases"]) >= {"fuse", "optimize_iter", "optimize_step",
-                                 "nm_optimize", "pretrain"}
+                                 "nm_optimize", "pretrain", "sp_fuse",
+                                 "sp_decode", "sp_optimize", "sp_nm"}
     assert np.all(np.isfinite(out["optimize_iter_losses"]))
 
 
 def test_parallel_runs_without_jax(tmp_path):
-    """`import bnv_fusion_tpu_torch.parallel` and the dry run's CLI with
-    jax, jaxlib, flax, optax and the JAX package unimportable (shadowed by
-    packages that raise, first on the path of every rank)."""
+    """`import bnv_fusion_tpu_torch.parallel` (and its spatial module) and
+    the dry run's CLI, spatial cases included, with jax, jaxlib, flax,
+    optax and the JAX package unimportable (shadowed by packages that
+    raise, first on the path of every rank)."""
     block = tmp_path / "blocked"
     for name in ("jax", "jaxlib", "flax", "optax", "bnv_fusion_tpu"):
         (block / name).mkdir(parents=True)
@@ -142,6 +145,9 @@ def test_parallel_runs_without_jax(tmp_path):
     env["PYTHONPATH"] = str(block) + os.pathsep + REPO
     code = ("import bnv_fusion_tpu_torch.parallel as p, sys\n"
             "from bnv_fusion_tpu_torch.parallel import launch, dryrun\n"
+            "from bnv_fusion_tpu_torch.parallel import spatial\n"
+            "assert spatial.create_spatial_table(p.make_mesh(), (4, 4, 4), "
+            "64, 8).nv_shard == 64\n"
             "assert p.make_mesh().size == 1\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'bnv_fusion_tpu')]\n"
@@ -155,6 +161,10 @@ def test_parallel_runs_without_jax(tmp_path):
                          cwd=str(tmp_path), timeout=600)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert '"ranks": 4' in res.stdout
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert {"sp_fuse", "sp_decode", "sp_optimize", "sp_nm"} <= \
+        set(out["cases"])
+    assert out["spatial_voxels"] > 0 and len(out["spatial_losses"]) == 2
 
 
 def test_distributed_is_a_no_op_without_torchrun(monkeypatch):
