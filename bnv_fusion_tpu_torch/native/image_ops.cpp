@@ -1,22 +1,33 @@
-// Native image codec: PNG row filters, baseline/extended sequential JPEG
-// decoding and baseline JPEG encoding.
+// Native image codec: PNG row filters, JPEG decoding (baseline, extended
+// sequential and progressive Huffman; 1, 3 and 4 components) and baseline
+// JPEG encoding.
 //
 // The JAX package reads and writes every image through cv2 (libpng and
 // libjpeg(-turbo)); the port has neither, so this file rebuilds the parts it
 // needs.  The arithmetic follows libjpeg where cv2's results depend on it:
 //   * jidctint.c  jpeg_idct_islow        (the decoder's default IDCT)
+//   * jdphuff.c   the four progressive scan kinds, into a whole-image
+//     coefficient buffer (jdcoefct.c), quantization tables latched per
+//     component at its first scan (jdinput.c latch_quant_tables)
 //   * jdsample.c  h2v1/h2v2/h1v2 "fancy" triangular chroma upsampling
-//   * jdcolor.c   fixed-point YCbCr -> RGB tables
+//   * jdcolor.c   fixed-point YCbCr -> RGB tables, YCCK -> CMYK
 //   * jfdctint.c  jpeg_fdct_islow, jcsample.c h2v2_downsample, jccolor.c
 //     RGB -> YCbCr and jcparam.c quality scaling (the encoder's defaults)
+// and cv2's where it post-processes libjpeg's samples: CMYK -> BGR
+// (imgcodecs/src/utils.cpp icvCvt_CMYK2BGR_8u_C4C3R).
 // PNG inflation stays in Python (zlib); only the five row filters are here,
 // since Paeth and Average run sequentially along a row.  cv2's INTER_AREA
-// resize at fractional ratios (imgproc/resize.cpp computeResizeAreaTab and
-// ResizeArea_Invoker) is here too, its float32 sums in cv2's order.
+// resize is here too (imgproc/resize.cpp): at fractional shrinking ratios
+// computeResizeAreaTab and ResizeArea_Invoker, their float32 sums in cv2's
+// order; where either axis grows, the linear resize with area coefficients
+// and its uint8 fixed-point passes.
 //
 // Exposed via a plain C ABI for ctypes.  Errors return a negative code; the
 // message is read with image_ops_error().  Return codes: -1 malformed or
-// unsupported input, -2 progressive JPEG, -3 arithmetic-coded JPEG.
+// unsupported input, -2 a JPEG coding mode the decoder does not implement
+// (arithmetic coding, lossless, hierarchical, 12-bit samples, 2 components,
+// a DNL-defined height, or progressive scans that leave coefficient bits
+// unknown).
 //
 // Build: c++ -O3 -shared -fPIC -std=c++17 image_ops.cpp -o libimage_ops.so
 
@@ -312,10 +323,15 @@ struct BitReader {
     acc <<= n;
     nbits -= n;
   }
+  inline uint32_t get(int n) {  // n raw bits, n <= 16
+    if (n == 0) return 0;
+    uint32_t v = peek(n);
+    skip(n);
+    return v;
+  }
   inline int32_t receive(int s) {
     if (s == 0) return 0;
-    uint32_t v = peek(s);
-    skip(s);
+    uint32_t v = get(s);
     // F.2.2.1 EXTEND
     if (v < (1u << (s - 1))) return (int32_t)v - (1 << s) + 1;
     return (int32_t)v;
@@ -356,7 +372,27 @@ struct Component {
   int64_t pw = 0, ph = 0;       // plane size (whole MCUs)
   int32_t dc_pred = 0;
   std::vector<uint8_t> plane;
+  // progressive: quantized coefficients of every block of the plane
+  // (natural order), the quantization table latched at the component's
+  // first scan, and how many low bits of each coefficient (zigzag order)
+  // are still unknown (-1 = no scan yet; libjpeg's coef_bits)
+  std::vector<int16_t> coef;
+  bool latched = false;
+  int32_t qlatch[64] = {0};
+  int coef_bits[64];
+  int16_t* block(int64_t bx, int64_t by) {
+    return coef.data() + (by * (pw / 8) + bx) * 64;
+  }
 };
+
+// Frame types (and the arithmetic-conditioning marker) of the coding modes
+// that are not implemented: raises for them, returns for any other marker.
+void refuse_sof(int m) {
+  if (m == 0xC3) fail("lossless JPEG is not supported", -2);
+  if (m >= 0xC5 && m <= 0xC7) fail("hierarchical JPEG is not supported", -2);
+  if (m >= 0xC9 && m <= 0xCF)
+    fail("arithmetic-coded JPEG is not supported", -2);
+}
 
 struct JpegDecoder {
   const uint8_t* data;
@@ -366,7 +402,8 @@ struct JpegDecoder {
   int hmax = 1, vmax = 1;
   int64_t mcux = 0, mcuy = 0;
   int restart_interval = 0;
-  bool have_frame = false, saw_jfif = false, saw_adobe = false;
+  bool have_frame = false, progressive = false;
+  bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
   int32_t qt[4][64];
   bool qt_present[4] = {false, false, false, false};
@@ -396,22 +433,23 @@ struct JpegDecoder {
     }
   }
 
-  void read_sof(bool alloc) {
+  void read_sof(bool alloc, bool prog) {
     if (have_frame) fail("more than one frame in the JPEG");
+    progressive = prog;
     int len = u16();
     int64_t stop = pos + len - 2;
     int precision = u8();
     if (precision != 8)
-      fail("JPEG sample precision " + std::to_string(precision) +
-           " bits (only 8 is supported)");
+      fail("JPEG with " + std::to_string(precision) +
+               "-bit samples is not supported (8-bit only)", -2);
     height = u16();
     width = u16();
     ncomp = u8();
-    if (height == 0) fail("JPEG with a DNL-defined height is not supported");
+    if (height == 0) fail("JPEG with a DNL-defined height is not supported", -2);
     if (width == 0) fail("JPEG width 0");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail("JPEG with " + std::to_string(ncomp) +
-           " components (only 1 and 3 are supported)");
+           " components is not supported (1, 3 and 4 are)", -2);
     for (int i = 0; i < ncomp; i++) {
       Component& c = comp[i];
       c.id = u8();
@@ -433,7 +471,10 @@ struct JpegDecoder {
       c.ch = ((int64_t)height * c.v + vmax - 1) / vmax;
       c.pw = mcux * c.h * 8;
       c.ph = mcuy * c.v * 8;
-      if (alloc) c.plane.assign((size_t)(c.pw * c.ph), 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      if (!alloc) continue;
+      if (progressive) c.coef.assign((size_t)(c.pw / 8 * c.ph / 8 * 64), 0);
+      else c.plane.assign((size_t)(c.pw * c.ph), 0);
     }
     have_frame = true;
   }
@@ -513,6 +554,45 @@ struct JpegDecoder {
     idct_islow(coef, c.plane.data() + by * 8 * c.pw + bx * 8, c.pw);
   }
 
+  // Run fn(block column, block row, component) over a scan's blocks, MCU
+  // by MCU, with the restart interval: a single-component scan covers the
+  // component's own ceil(cw/8) x ceil(ch/8) blocks, an interleaved one
+  // whole MCUs.  on_restart runs after each RSTn.
+  template <class Fn, class Restart>
+  void for_each_block(BitReader& br, Component** sc, int ns, Fn fn,
+                      Restart on_restart) {
+    int64_t todo = restart_interval;
+    auto maybe_restart = [&](bool last) {
+      if (!restart_interval || last) return;
+      if (--todo == 0) {
+        br.restart();
+        for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+        on_restart();
+        todo = restart_interval;
+      }
+    };
+    if (ns == 1) {
+      Component& c = *sc[0];
+      int64_t bw = (c.cw + 7) / 8, bh = (c.ch + 7) / 8;
+      for (int64_t by = 0; by < bh; by++)
+        for (int64_t bx = 0; bx < bw; bx++) {
+          fn(bx, by, c);
+          maybe_restart(by == bh - 1 && bx == bw - 1);
+        }
+    } else {
+      for (int64_t my = 0; my < mcuy; my++)
+        for (int64_t mx = 0; mx < mcux; mx++) {
+          for (int i = 0; i < ns; i++) {
+            Component& c = *sc[i];
+            for (int yy = 0; yy < c.v; yy++)
+              for (int xx = 0; xx < c.h; xx++)
+                fn(mx * c.h + xx, my * c.v + yy, c);
+          }
+          maybe_restart(my == mcuy - 1 && mx == mcux - 1);
+        }
+    }
+  }
+
   void read_sos() {
     if (!have_frame) fail("SOS before SOF");
     int len = u16();
@@ -527,48 +607,161 @@ struct JpegDecoder {
       if (!sc[i]) fail("SOS names an unknown component");
       sc[i]->td = tdta >> 4;
       sc[i]->ta = tdta & 15;
-      if (sc[i]->td > 3 || sc[i]->ta > 3 || !dc[sc[i]->td].present ||
-          !ac[sc[i]->ta].present)
+      if (sc[i]->td > 3 || sc[i]->ta > 3)
         fail("SOS uses a missing Huffman table");
       if (!qt_present[sc[i]->tq]) fail("component uses a missing DQT table");
       sc[i]->dc_pred = 0;
     }
     int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0) fail("bad sequential scan");
-
     BitReader br{data + pos, data + n};
-    int64_t todo = restart_interval;
-    auto maybe_restart = [&](bool last) {
-      if (!restart_interval || last) return;
-      if (--todo == 0) {
-        br.restart();
-        for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
-        todo = restart_interval;
-      }
-    };
-    if (ns == 1) {
-      Component& c = *sc[0];
-      int64_t bw = (c.cw + 7) / 8, bh = (c.ch + 7) / 8;
-      for (int64_t by = 0; by < bh; by++)
-        for (int64_t bx = 0; bx < bw; bx++) {
-          decode_block(br, c, bx, by);
-          maybe_restart(by == bh - 1 && bx == bw - 1);
-        }
+    if (progressive) {
+      progressive_scan(br, sc, ns, ss, se, ahal >> 4, ahal & 15);
     } else {
-      for (int64_t my = 0; my < mcuy; my++)
-        for (int64_t mx = 0; mx < mcux; mx++) {
-          for (int i = 0; i < ns; i++) {
-            Component& c = *sc[i];
-            for (int yy = 0; yy < c.v; yy++)
-              for (int xx = 0; xx < c.h; xx++)
-                decode_block(br, c, mx * c.h + xx, my * c.v + yy);
-          }
-          maybe_restart(my == mcuy - 1 && mx == mcux - 1);
-        }
+      if (ss != 0 || se != 63 || ahal != 0) fail("bad sequential scan");
+      for (int i = 0; i < ns; i++)
+        if (!dc[sc[i]->td].present || !ac[sc[i]->ta].present)
+          fail("SOS uses a missing Huffman table");
+      for_each_block(
+          br, sc, ns,
+          [&](int64_t bx, int64_t by, Component& c) {
+            decode_block(br, c, bx, by);
+          },
+          [] {});
     }
     pos = br.p - data;  // the next marker search starts here
   }
 
+  // One progressive scan into the coefficient buffers (jdphuff.c:
+  // start_pass_phuff_decoder's checks, then decode_mcu_DC_first,
+  // decode_mcu_DC_refine, decode_mcu_AC_first or decode_mcu_AC_refine).
+  // libjpeg only warns about a scan order that skips or repeats bits; so
+  // does nothing here.
+  void progressive_scan(BitReader& br, Component** sc, int ns, int ss, int se,
+                        int ah, int al) {
+    const bool dc_band = ss == 0;
+    bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) fail("bad progressive scan parameters");
+    for (int i = 0; i < ns; i++) {
+      Component& c = *sc[i];
+      if (dc_band ? (ah == 0 && !dc[c.td].present) : !ac[c.ta].present)
+        fail("SOS uses a missing Huffman table");
+      if (!c.latched) {  // jdinput.c latch_quant_tables
+        std::memcpy(c.qlatch, qt[c.tq], sizeof(c.qlatch));
+        c.latched = true;
+      }
+      for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
+    }
+    const int p1 = 1 << al, m1 = -p1;
+    int eobrun = 0;
+    auto reset = [&] { eobrun = 0; };
+    // a coefficient already nonzero gains its next bit (AC refinement)
+    auto refine = [&](int16_t* t) {
+      if (br.get(1) && (*t & p1) == 0) *t = (int16_t)(*t + (*t >= 0 ? p1 : m1));
+    };
+    if (dc_band && ah == 0) {
+      for_each_block(br, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        int t = br.decode(dc[c.td]);
+        if (t > 16) fail("corrupt DC coefficient");
+        c.dc_pred += br.receive(t);
+        c.block(bx, by)[0] = (int16_t)((uint32_t)c.dc_pred << al);
+      }, reset);
+    } else if (dc_band) {
+      for_each_block(br, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        if (br.get(1)) c.block(bx, by)[0] = (int16_t)(c.block(bx, by)[0] | p1);
+      }, reset);
+    } else if (ah == 0) {
+      for_each_block(br, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        if (eobrun > 0) {
+          eobrun--;
+          return;
+        }
+        int16_t* blk = c.block(bx, by);
+        const HuffTable& ha = ac[c.ta];
+        for (int k = ss; k <= se; k++) {
+          int rs = br.decode(ha);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            k += r;
+            blk[kZigzag[k]] = (int16_t)((uint32_t)br.receive(s) << al);
+          } else if (r == 15) {
+            k += 15;
+          } else {
+            eobrun = (1 << r) + (int)br.get(r) - 1;
+            break;
+          }
+        }
+      }, reset);
+    } else {
+      for_each_block(br, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        int16_t* blk = c.block(bx, by);
+        const HuffTable& ha = ac[c.ta];
+        int k = ss;
+        if (eobrun == 0) {
+          for (; k <= se; k++) {
+            int rs = br.decode(ha);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+              s = br.get(1) ? p1 : m1;  // libjpeg warns if the size is not 1
+            } else if (r != 15) {
+              eobrun = (1 << r) + (int)br.get(r);
+              break;
+            }
+            // skip r zero-history coefficients, refining nonzero ones
+            do {
+              int16_t* t = blk + kZigzag[k];
+              if (*t != 0) refine(t);
+              else if (--r < 0) break;
+              k++;
+            } while (k <= se);
+            if (s) blk[kZigzag[k]] = (int16_t)s;
+          }
+        }
+        if (eobrun > 0) {
+          for (; k <= se; k++) {
+            int16_t* t = blk + kZigzag[k];
+            if (*t != 0) refine(t);
+          }
+          eobrun--;
+        }
+      }, reset);
+    }
+  }
+
+  // After the last scan: libjpeg block-smooths a progressive image whose
+  // first AC coefficients still have unknown bits (jdcoefct.c
+  // smoothing_ok, SAVED_COEFS = 10); that is refused.  Otherwise every
+  // block is dequantized with its latched table and inverse-transformed,
+  // as decompress_data does.
+  void finish_progressive() {
+    bool useful = false;
+    for (int i = 0; i < ncomp; i++) {
+      const Component& c = comp[i];
+      const int32_t* q = c.qlatch;
+      if (!c.latched || q[0] == 0 || q[1] == 0 || q[8] == 0 || q[16] == 0 ||
+          q[9] == 0 || q[2] == 0 || q[3] == 0 || q[10] == 0 || q[17] == 0 ||
+          q[24] == 0 || c.coef_bits[0] < 0) {
+        useful = false;
+        break;
+      }
+      for (int k = 1; k < 10; k++) useful |= c.coef_bits[k] != 0;
+    }
+    if (useful)
+      fail("progressive JPEG whose scans leave coefficient bits unknown "
+           "(libjpeg block-smooths it) is not supported", -2);
+    int32_t deq[64];
+    for (int i = 0; i < ncomp; i++) {
+      Component& c = comp[i];
+      c.plane.assign((size_t)(c.pw * c.ph), 0);
+      for (int64_t by = 0; by < c.ph / 8; by++)
+        for (int64_t bx = 0; bx < c.pw / 8; bx++) {
+          const int16_t* blk = c.block(bx, by);
+          for (int k = 0; k < 64; k++) deq[k] = blk[k] * c.qlatch[k];
+          idct_islow(deq, c.plane.data() + by * 8 * c.pw + bx * 8, c.pw);
+        }
+      std::vector<int16_t>().swap(c.coef);
+    }
+  }
   void parse() {
     if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG file");
     pos = 2;
@@ -578,13 +771,8 @@ struct JpegDecoder {
       if (m >= 0xD0 && m <= 0xD7) continue;       // stray RSTn
       if (m == 0x01) continue;                    // TEM
       switch (m) {
-        case 0xC0: case 0xC1: read_sof(true); break;
-        case 0xC2: case 0xC6: case 0xCA: case 0xCE:
-          fail("progressive JPEG is not supported", -2);
-        case 0xC9: case 0xCB: case 0xCD: case 0xCC: case 0xCF:
-          fail("arithmetic-coded JPEG is not supported", -3);
-        case 0xC3: case 0xC5: case 0xC7:
-          fail("lossless or hierarchical JPEG is not supported");
+        case 0xC0: case 0xC1: read_sof(true, false); break;
+        case 0xC2: read_sof(true, true); break;
         case 0xC4: read_dht(); break;
         case 0xDB: read_dqt(); break;
         case 0xDD:
@@ -593,6 +781,7 @@ struct JpegDecoder {
           break;
         case 0xDA: read_sos(); break;
         default:
+          refuse_sof(m);
           if (m >= 0xE0 && m <= 0xEF) read_app(m);
           else if (m == 0xFE || m == 0xDC || m == 0xDE || m == 0xDF)
             pos += u16() - 2;
@@ -601,8 +790,8 @@ struct JpegDecoder {
       }
     }
     if (!have_frame) fail("JPEG without a frame");
+    if (progressive) finish_progressive();
   }
-
   // Full-resolution plane of component c (width x height), libjpeg's
   // upsampling: fancy (triangular) for h2v1, h2v2 and h1v2, box otherwise.
   std::vector<uint8_t> upsample(const Component& c) const {
@@ -693,19 +882,13 @@ struct JpegDecoder {
     std::vector<uint8_t> p0 = upsample(comp[0]);
     std::vector<uint8_t> p1 = upsample(comp[1]);
     std::vector<uint8_t> p2 = upsample(comp[2]);
-    bool rgb;
-    if (saw_jfif) rgb = false;
-    else if (saw_adobe) rgb = adobe_transform == 0;
-    else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
-    if (rgb) {
-      for (int64_t i = 0; i < npx; i++) {
-        out[3 * i] = p0[i];
-        out[3 * i + 1] = p1[i];
-        out[3 * i + 2] = p2[i];
-      }
-      return;
-    }
-    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+    // jdapimin.c default_decompress_parms: the colour space
+    bool ycc;
+    if (ncomp == 4) ycc = saw_adobe && adobe_transform != 0;  // YCCK
+    else if (saw_jfif) ycc = true;
+    else if (saw_adobe) ycc = adobe_transform != 0;
+    else ycc = !(comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B');
+    // jdcolor.c build_ycc_rgb_table
     constexpr int SB = 16;
     constexpr int64_t HALF = (int64_t)1 << (SB - 1);
     auto fix = [](double x) { return (int64_t)(x * (1L << SB) + 0.5); };
@@ -717,11 +900,35 @@ struct JpegDecoder {
       cr_g[i] = -fix(0.71414) * x;
       cb_g[i] = -fix(0.34414) * x + HALF;
     }
+    if (ycc) {  // ycc_rgb_convert, or the first step of ycck_cmyk_convert
+      for (int64_t i = 0; i < npx; i++) {
+        int y = p0[i], cb = p1[i], cr = p2[i];
+        p0[i] = clamp255(y + cr_r[cr]);
+        p1[i] = clamp255(y + (int)((cb_g[cb] + cr_g[cr]) >> SB));
+        p2[i] = clamp255(y + cb_b[cb]);
+        if (ncomp == 4) {
+          p0[i] = (uint8_t)(255 - p0[i]);
+          p1[i] = (uint8_t)(255 - p1[i]);
+          p2[i] = (uint8_t)(255 - p2[i]);
+        }
+      }
+    }
+    if (ncomp == 3) {
+      for (int64_t i = 0; i < npx; i++) {
+        out[3 * i] = p0[i];
+        out[3 * i + 1] = p1[i];
+        out[3 * i + 2] = p2[i];
+      }
+      return;
+    }
+    // CMYK as libjpeg hands it over, to cv2's colour
+    // (imgcodecs/src/utils.cpp icvCvt_CMYK2BGR_8u_C4C3R, channels reversed)
+    std::vector<uint8_t> p3 = upsample(comp[3]);
     for (int64_t i = 0; i < npx; i++) {
-      int y = p0[i], cb = p1[i], cr = p2[i];
-      out[3 * i] = clamp255(y + cr_r[cr]);
-      out[3 * i + 1] = clamp255(y + (int)((cb_g[cb] + cr_g[cr]) >> SB));
-      out[3 * i + 2] = clamp255(y + cb_b[cb]);
+      int k = p3[i];
+      out[3 * i] = (uint8_t)(k - (((255 - p0[i]) * k) >> 8));
+      out[3 * i + 1] = (uint8_t)(k - (((255 - p1[i]) * k) >> 8));
+      out[3 * i + 2] = (uint8_t)(k - (((255 - p2[i]) * k) >> 8));
     }
   }
 };
@@ -1154,7 +1361,8 @@ inline uint8_t saturate_u8(float v) {
 extern "C" {
 
 // cv2.resize(src, (dw, dh), interpolation=INTER_AREA) for uint8 [sh, sw,
-// cn] shrunk on both axes (ResizeArea_Invoker over every row).
+// cn] shrunk on both axes at a fractional ratio (ResizeArea_Invoker over
+// every row).
 void image_ops_resize_area(const uint8_t* src, int64_t sh, int64_t sw,
                            int cn, uint8_t* dst, int64_t dh, int64_t dw) {
   const double scale_x = 1.0 / ((double)dw / sw);
@@ -1182,6 +1390,65 @@ void image_ops_resize_area(const uint8_t* src, int64_t sh, int64_t sw,
   }
   uint8_t* D = dst + prev_dy * width;
   for (int64_t i = 0; i < width; i++) D[i] = saturate_u8(sum[i]);
+}
+
+// cv2.resize(src, (dw, dh), interpolation=INTER_AREA) for uint8 [sh, sw,
+// cn] where either axis grows: imgproc/resize.cpp cv::hal::resize takes the
+// linear kernel with area coefficients there (area_mode: sx = floor(dx *
+// scale), fx = (dx + 1) - (sx + 1) / scale, fx <= 0 ? 0 : fx - floor(fx)),
+// in fixed point with INTER_RESIZE_COEF_BITS = 11: HResizeLinear's integer
+// row pass, then VResizeLinear<uchar, int, short, ...>, whose scalar tail
+// rounds as its vector body (VResizeLinearVec_32s8u) does.
+void image_ops_resize_linear_area(const uint8_t* src, int64_t sh, int64_t sw,
+                                  int cn, uint8_t* dst, int64_t dh,
+                                  int64_t dw) {
+  constexpr int ONE = 1 << 11;
+  auto coefs = [](int64_t ssize, int64_t dsize, std::vector<int64_t>& ofs,
+                  std::vector<int32_t>& a, bool clamp_last) {
+    const double inv = (double)dsize / ssize, scale = 1.0 / inv;
+    int64_t lim = dsize;  // from here on, one source sample (xmax)
+    for (int64_t d = 0; d < dsize; d++) {
+      int64_t s = (int64_t)std::floor(d * scale);
+      float f = (float)((d + 1) - (s + 1) * inv);
+      f = f <= 0 ? 0.f : f - std::floor(f);
+      if (clamp_last && s + 1 >= ssize) {
+        lim = std::min(lim, d);
+        f = 0.f;
+        s = ssize - 1;
+      }
+      ofs[d] = s;
+      a[2 * d] = (int32_t)std::lrintf((1.f - f) * ONE);
+      a[2 * d + 1] = (int32_t)std::lrintf(f * ONE);
+    }
+    return lim;
+  };
+  std::vector<int64_t> xofs(dw), yofs(dh);
+  std::vector<int32_t> alpha(2 * dw), beta(2 * dh);
+  const int64_t xmax = coefs(sw, dw, xofs, alpha, true);
+  coefs(sh, dh, yofs, beta, false);
+  const int64_t width = dw * cn;
+  std::vector<int32_t> rows((size_t)(sh * width));  // HResizeLinear
+  for (int64_t y = 0; y < sh; y++) {
+    const uint8_t* S = src + y * sw * cn;
+    int32_t* D = rows.data() + y * width;
+    for (int64_t dx = 0; dx < dw; dx++) {
+      const uint8_t* s0 = S + xofs[dx] * cn;
+      for (int c = 0; c < cn; c++)
+        D[dx * cn + c] = dx < xmax ? s0[c] * alpha[2 * dx] +
+                                         s0[c + cn] * alpha[2 * dx + 1]
+                                   : s0[c] * ONE;
+    }
+  }
+  for (int64_t dy = 0; dy < dh; dy++) {  // VResizeLinear, uchar
+    const int64_t y0 = std::min(std::max(yofs[dy], (int64_t)0), sh - 1);
+    const int64_t y1 = std::min(std::max(yofs[dy] + 1, (int64_t)0), sh - 1);
+    const int32_t *S0 = rows.data() + y0 * width, *S1 = rows.data() + y1 * width;
+    const int32_t b0 = beta[2 * dy], b1 = beta[2 * dy + 1];
+    uint8_t* D = dst + dy * width;
+    for (int64_t x = 0; x < width; x++)
+      D[x] = clamp255((((b0 * (S0[x] >> 4)) >> 16) +
+                       ((b1 * (S1[x] >> 4)) >> 16) + 2) >> 2);
+  }
 }
 
 
@@ -1232,7 +1499,8 @@ int image_ops_png_unfilter(const uint8_t* in, uint8_t* out, int64_t rows,
   return 0;
 }
 
-// Frame size of a JPEG: info = [width, height, components].
+// Frame size of a JPEG as stored (before any EXIF orientation): info =
+// [width, height, components].
 int image_ops_jpeg_header(const uint8_t* data, int64_t n, int32_t* info) {
   try {
     JpegDecoder d(data, n);
@@ -1240,16 +1508,11 @@ int image_ops_jpeg_header(const uint8_t* data, int64_t n, int32_t* info) {
     d.pos = 2;
     for (;;) {
       int m = d.next_marker();
-      if (m == 0xC0 || m == 0xC1) {
-        d.read_sof(false);
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        d.read_sof(false, m == 0xC2);
         break;
       }
-      if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE)
-        fail("progressive JPEG is not supported", -2);
-      if (m == 0xC9 || m == 0xCB || m == 0xCD || m == 0xCC || m == 0xCF)
-        fail("arithmetic-coded JPEG is not supported", -3);
-      if (m == 0xC3 || m == 0xC5 || m == 0xC7)
-        fail("lossless or hierarchical JPEG is not supported");
+      refuse_sof(m);
       if (m == 0xD9 || m == 0xDA) fail("JPEG without a frame header");
       if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
       d.pos += d.u16() - 2;

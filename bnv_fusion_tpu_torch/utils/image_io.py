@@ -8,13 +8,17 @@ downsampling in canonical.py:34-38, the converter's writers in
 scripts/generate_fusion_data.py:52-76).  This module gives the port the
 same results with numpy, zlib and ``native/image_ops.cpp`` (PNG row
 filters, JPEG entropy coding, libjpeg's integer DCTs, chroma resampling and
-colour tables), built at first use.
+colour tables, cv2's area resize), built at first use.
 
 Colour arrays are RGB, not cv2's BGR: the JAX readers flip BGR at once
-(canonical.py:107, pipeline.py:880).
+(canonical.py:107, pipeline.py:880).  Colour reads (``read_image``,
+``read_color``, ``decode_jpeg``, ``decode_png(unchanged=False)``) apply the
+file's EXIF orientation as ``cv2.IMREAD_COLOR`` does; the unchanged PNG read
+(depth, confidence) ignores it, as ``cv2.imread(path, -1)`` does.
 
     img = read_png(path)            # as cv2.imread(path, -1), RGB order
-    rgb = read_image(path)          # as cv2.imread(path), RGB, uint8
+    rgb = read_image(path)          # as cv2.imread(path), RGB, uint8,
+                                    # EXIF orientation applied
     write_png(path, depth_mm)       # 8-bit grey/RGB, 16-bit grey
     write_jpeg(path, rgb, 95)       # baseline 4:2:0, cv2.imwrite's default
 """
@@ -34,6 +38,7 @@ PNG_SIG = b"\x89PNG\r\n\x1a\n"
 JPEG_SOI = b"\xff\xd8"
 # ROADMAP item that would add the JPEG coding modes the decoder refuses
 UNSUPPORTED_JPEG_ITEM = "ROADMAP Queue 1 item 16"
+ORIENTATION_TAG = 0x0112
 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
@@ -57,10 +62,11 @@ def _lib() -> ctypes.CDLL:
     lib.image_ops_jpeg_encode.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
                                           ctypes.c_int]
     lib.image_ops_fetch_encoded.argtypes = [u8p]
-    lib.image_ops_resize_area.restype = None
-    lib.image_ops_resize_area.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
-                                          ctypes.c_int, u8p, ctypes.c_int64,
-                                          ctypes.c_int64]
+    resize_args = [u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, u8p,
+                   ctypes.c_int64, ctypes.c_int64]
+    for fn in (lib.image_ops_resize_area, lib.image_ops_resize_linear_area):
+        fn.restype = None
+        fn.argtypes = resize_args
     return lib
 
 
@@ -71,6 +77,116 @@ def _ptr(a: np.ndarray):
 def _read_bytes(path: str) -> bytes:
     with open(path, "rb") as f:
         return f.read()
+
+
+# ---------------------------------------------------------------------------
+# EXIF orientation (cv2: imgcodecs/src/exif.cpp, loadsave.cpp)
+# ---------------------------------------------------------------------------
+
+class _ExifEnd(Exception):
+    """A read past the end of the EXIF block (cv2's ExifParsingError)."""
+
+
+# IFD0 tags whose values cv2's ExifReader::parseExifEntry reads from an
+# offset, and so can end the parse: the strings (getString, out of line when
+# longer than 4 bytes) and the rationals with how many each reads
+_EXIF_STRINGS = (0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298)
+_EXIF_RATIONALS = {0x011A: 1, 0x011B: 1, 0x013E: 2, 0x013F: 6, 0x0211: 3,
+                   0x0214: 6}
+
+
+def _orientation_entry(tiff: bytes):
+    """The first Orientation entry's value in IFD0 of a TIFF-structured
+    EXIF block, or None, as cv2's ExifReader::parseExif reads it: the byte
+    order from ``II``/``MM`` (big-endian unless the first two bytes read
+    ``II``), the entries in order until one reads past the end, the value's
+    first 16 bits whatever its type."""
+    n = len(tiff)
+    little = n > 0 and tiff[0] == ord("I") and (n == 1 or tiff[1] == tiff[0])
+
+    def u16(o: int) -> int:
+        if o + 1 >= n:
+            raise _ExifEnd
+        return int.from_bytes(tiff[o:o + 2], "little" if little else "big")
+
+    def u32(o: int) -> int:
+        if o + 3 >= n:
+            raise _ExifEnd
+        return int.from_bytes(tiff[o:o + 4], "little" if little else "big")
+
+    try:
+        if u16(2) != 0x2A:
+            return None
+        off = u32(4)
+        for i in range(u16(off)):
+            e = off + 2 + 12 * i
+            tag = u16(e)
+            if tag == ORIENTATION_TAG:
+                return u16(e + 8)
+            if tag in _EXIF_STRINGS:
+                cnt = u32(e + 4)
+                if cnt > 4:
+                    at = u32(e + 8)
+                    if at > n or at + cnt > n:
+                        return None
+            elif tag in _EXIF_RATIONALS:
+                at = u32(e + 8)
+                for k in range(2 * _EXIF_RATIONALS[tag]):
+                    u32(at + 4 * k)
+    except _ExifEnd:
+        pass
+    return None
+
+
+def exif_orientation(*blocks: bytes) -> int:
+    """The EXIF orientation (1-8) of TIFF-structured blocks (a PNG eXIf
+    chunk, a JPEG's APP1 segments after their "Exif\\0\\0"): the first
+    Orientation entry among them, as cv2 keeps the first in one tag map.
+    None, malformed or out of range means 1, the image as stored."""
+    for block in blocks:
+        v = _orientation_entry(block)
+        if v is not None:
+            return v if 1 <= v <= 8 else 1
+    return 1
+
+
+def jpeg_orientation(data: bytes) -> int:
+    """The EXIF orientation of a JPEG, from its "Exif\\0\\0" APP1 segments
+    before the first scan."""
+    blocks, pos, n = [], 2, len(data)
+    while pos + 4 <= n:
+        if data[pos] != 0xFF:           # bytes between markers: skipped,
+            pos += 1                    # as libjpeg's next_marker does
+            continue
+        m = data[pos + 1]
+        if m == 0xFF:
+            pos += 1
+            continue
+        if m in (0xDA, 0xD9):
+            break
+        if m == 0x01 or 0xD0 <= m <= 0xD7:
+            pos += 2
+            continue
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        body = data[pos + 4:pos + 2 + length]
+        if m == 0xE1 and body[:6] == b"Exif\0\0":
+            blocks.append(body[6:])
+        pos += 2 + length
+    return exif_orientation(*blocks)
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """cv2's ApplyExifOrientation (imgcodecs/src/loadsave.cpp): 2 flips
+    left-right, 3 rotates 180 degrees, 4 flips top-bottom, 5 transposes,
+    6 rotates 90 degrees clockwise, 7 transverses, 8 rotates 90 degrees
+    counter-clockwise; 1 (or anything else) leaves the image as stored."""
+    if orientation in (5, 6, 7, 8):
+        img = np.swapaxes(img, 0, 1)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
 
 
 # ---------------------------------------------------------------------------
@@ -129,11 +245,22 @@ def decode_png(data: bytes, unchanged: bool = True) -> np.ndarray:
 
     ``unchanged=True`` is ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: grey
     [H, W] at 8 or 16 bits (1, 2 and 4 bits scale to 8), colour [H, W, 3]
-    or, with an alpha channel or palette transparency, [H, W, 4].
-    ``unchanged=False`` is ``cv2.imread(path)``: uint8 [H, W, 3], 16 bits
-    reduced to their high byte, grey replicated, alpha dropped."""
+    or, with an alpha channel or palette transparency, [H, W, 4], as
+    stored.  ``unchanged=False`` is ``cv2.imread(path)``: uint8 [H, W, 3],
+    16 bits reduced to their high byte, grey replicated, alpha dropped, the
+    orientation of an ``eXIf`` chunk applied."""
+    chunks = list(_png_chunks(data))
+    img = _decode_png(chunks, unchanged)
+    if unchanged:
+        return img
+    # libpng keeps the first eXIf chunk
+    exif = [body for kind, body in chunks if kind == b"eXIf"][:1]
+    return apply_orientation(img, exif_orientation(*exif))
+
+
+def _decode_png(chunks, unchanged: bool) -> np.ndarray:
     ihdr, plte, trns, idat = None, None, None, []
-    for kind, body in _png_chunks(data):
+    for kind, body in chunks:
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
@@ -204,7 +331,8 @@ def decode_png(data: bytes, unchanged: bool = True) -> np.ndarray:
 
 def read_png(path: str, unchanged: bool = True) -> np.ndarray:
     """``cv2.imread(path, -1)`` (or ``cv2.imread(path)`` with
-    ``unchanged=False``) for a PNG file, channels in RGB(A) order."""
+    ``unchanged=False``) for a PNG file, channels in RGB(A) order; only the
+    colour read applies an EXIF orientation."""
     return decode_png(_read_bytes(path), unchanged)
 
 
@@ -248,17 +376,20 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 def _jpeg_error(lib, code: int) -> ValueError:
     msg = lib.image_ops_error().decode()
-    if code in (-2, -3):
+    if code == -2:
         msg += f" ({UNSUPPORTED_JPEG_ITEM})"
     return ValueError(msg)
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Baseline or extended sequential Huffman JPEG bytes (1 or 3
-    components, any integer chroma sampling, restart markers) -> uint8
-    [H, W, 3] RGB, grey replicated; cv2.imread's IMREAD_COLOR result with
-    the channels reversed.  Progressive and arithmetic-coded files raise
-    ``ValueError``."""
+    """JPEG bytes -> uint8 [H, W, 3] RGB, grey replicated, its EXIF
+    orientation applied: cv2.imread's IMREAD_COLOR result with the channels
+    reversed.  Reads baseline, extended sequential and progressive Huffman
+    files with 1, 3 (YCbCr or RGB) or 4 (CMYK or YCCK) components, any
+    integer chroma sampling and restart markers.  Arithmetic-coded,
+    lossless, hierarchical and 12-bit files, 2 components, a DNL-defined
+    height and progressive scans that leave coefficient bits unknown raise
+    ``ValueError`` naming the ROADMAP item that would add them."""
     lib = _lib()
     buf = np.frombuffer(data, np.uint8)
     info = (ctypes.c_int32 * 3)()
@@ -270,7 +401,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     rc = lib.image_ops_jpeg_decode(_ptr(buf), len(buf), _ptr(out), w, h)
     if rc != 0:
         raise _jpeg_error(lib, rc)
-    return out
+    return apply_orientation(out, jpeg_orientation(data))
 
 
 def read_jpeg(path: str) -> np.ndarray:
@@ -309,8 +440,8 @@ def write_jpeg(path: str, rgb: np.ndarray, quality: int = 95) -> None:
 
 def read_image(path: str) -> np.ndarray:
     """``cv2.imread(path)`` (IMREAD_COLOR) for a PNG or JPEG file, told
-    apart by content: uint8 [H, W, 3] RGB.  A file of another kind raises
-    ``ValueError``."""
+    apart by content: uint8 [H, W, 3] RGB, EXIF orientation applied.  A
+    file of another kind raises ``ValueError``."""
     data = _read_bytes(path)
     if data[:8] == PNG_SIG:
         return decode_png(data, unchanged=False)
@@ -320,9 +451,10 @@ def read_image(path: str) -> np.ndarray:
 
 
 def read_color(path: str, hw=None) -> np.ndarray:
-    """A colour frame as uint8 RGB [H, W, 3], area-resized to ``hw``
-    (height, width) where its size differs: what the JAX package's readers
-    get from cv2.imread + cv2.resize(INTER_AREA), channels reversed."""
+    """A colour frame as uint8 RGB [H, W, 3], oriented by its EXIF tag,
+    then area-resized to ``hw`` (height, width) where its size differs:
+    what the JAX package's readers get from cv2.imread + cv2.resize(
+    INTER_AREA), channels reversed."""
     img = read_image(path)
     if hw is not None and img.shape[:2] != tuple(hw):
         img = resize_area(img, (int(hw[1]), int(hw[0])))
@@ -351,10 +483,11 @@ def resize_nearest(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
 
 def resize_area(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
     """``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`` for uint8
-    images shrunk on both axes.  Integer ratios take cv2's fast path (the
+    images.  Shrunk on both axes: integer ratios take cv2's fast path (the
     box mean: (sum + 2) >> 2 for 2x2, else the float mean rounded half to
-    even); other ratios take its per-axis overlap weights, accumulated in
-    float32 in cv2's order, then rounded and saturated (in
+    even), other ratios its per-axis overlap weights, accumulated in float32
+    in cv2's order, then rounded and saturated.  Grown on either axis: cv2's
+    linear resize with area coefficients in 11-bit fixed point (both in
     native/image_ops.cpp)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
@@ -363,8 +496,15 @@ def resize_area(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
     sh, sw = img.shape[:2]
     if (w, h) == (sw, sh):
         return img.copy()
-    if w <= 0 or h <= 0 or w > sw or h > sh:
-        raise ValueError(f"resize_area shrinks only: {sw}x{sh} -> {w}x{h}")
+    if w <= 0 or h <= 0:
+        raise ValueError(f"resize_area to {w}x{h}")
+    src = np.ascontiguousarray(img)
+    cn = 1 if img.ndim == 2 else int(np.prod(img.shape[2:]))
+    out = np.empty((h, w) + img.shape[2:], np.uint8)
+    if w > sw or h > sh:
+        _lib().image_ops_resize_linear_area(_ptr(src), sh, sw, cn, _ptr(out),
+                                            h, w)
+        return out
     scale_x, scale_y = 1.0 / (w / sw), 1.0 / (h / sh)
     ix, iy = int(round(scale_x)), int(round(scale_y))
     if abs(scale_x - ix) < np.finfo(np.float64).eps and \
@@ -378,9 +518,5 @@ def resize_area(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
             return ((total + 2) >> 2).astype(np.uint8)
         mean = total.astype(np.float32) * np.float32(1.0 / (ix * iy))
         return np.clip(np.rint(mean), 0, 255).astype(np.uint8)
-
-    src = np.ascontiguousarray(img)
-    cn = 1 if img.ndim == 2 else int(np.prod(img.shape[2:]))
-    out = np.empty((h, w) + img.shape[2:], np.uint8)
     _lib().image_ops_resize_area(_ptr(src), sh, sw, cn, _ptr(out), h, w)
     return out

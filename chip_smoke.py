@@ -95,7 +95,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      refiner losses, a non-empty refined_0.ply; generate_fusion_data
      scannet and one frame read with load_color: 480x640 colour.  Then
      evaluate_bnvf, compute_chamfer, run_rgbd_integration and scripts.demo
-     (480x640, 16 frames), and the codec's timings (information only);
+     (480x640, 16 frames), and the codec's timings (information only).
+     Last, the colour modes (image_modes_step): every committed fixture of
+     tests/data/torch_image_modes decoded on the card's host to the
+     digests in its digests.json (the port's decodes on the CPU), each
+     progressive file equal to its baseline twin; run_inference scene3d
+     --mode e2e with model.fuse_color and the fused decode on the e2e
+     phase's frames, their img_paths pointing at the four 240x320 fixture
+     frames in turn (progressive, EXIF orientation 6 stored 320x240, CMYK,
+     baseline: decoded, oriented and area-enlarged onto the 480x640
+     depth), and again at PNGs of the port's decodes of the same files:
+     table keys, features, weights and hits equal bit for bit, the colour
+     prior too, seg_reduce_sorted and fused_corner_decode launched in each
+     (counts zeroed just before, read just after).  Cut to the first
+     MODES_FRAMES = 16 frames (one K=16 batch) and MODES_STEPS = 4 optimize
+     steps.  One line each with the card's name and power limit: the
+     progressive and baseline decode ms per 240x320 frame, the EXIF
+     orientation ms and the 240x320 -> 480x640 area-enlarge ms (host
+     times);
   9. fuse: local fusion at bench.py's operating point (phase_fuse):
      throughput through integrate_batches, best of 3 passes, and its table
      equal to sequential integrate_batch calls' bit for bit; auto
@@ -887,9 +904,10 @@ def write_gt_ply(path, surface, dims, transform=None):
     save_ply(path, Mesh(v, surface.faces))
 
 
-def phase_datasets(tmp, params, e2e_final_path):
+def phase_datasets(tmp, params, e2e_final_path, card):
     """The real-data path: converters, readers, run_inference in both modes
-    and the tools on synthetic content written in the real layouts."""
+    and the tools on synthetic content written in the real layouts, then
+    the colour modes (image_modes_step)."""
     import numpy as np
     import torch
     from bnv_fusion_tpu_torch import evaluation, run_e2e, test as offline
@@ -1185,6 +1203,153 @@ def phase_datasets(tmp, params, e2e_final_path):
           f"read {t_png:.2f} ms; {SCANNET_COLOR_HW[1]}x{SCANNET_COLOR_HW[0]} "
           f"JPEG read {t_jpg:.2f} ms (with the area resize to {size}: "
           f"{t_area:.2f} ms); {size} JPEG write {t_enc:.2f} ms", flush=True)
+
+    # 6. the colour modes
+    image_modes_step(os.path.join(tmp, "modes"), weights,
+                     [e for e in extra if not e.startswith("output_dir=")],
+                     synth_frames, dims, card)
+
+
+# the datasets phase's colour-modes step: the committed fixtures and the
+# digests of the port's decodes of them (tests/test_torch_image_modes.py
+# make_fixtures), and run_inference --mode e2e cut to one K=16 batch and a
+# few optimize steps, with the four 240x320 fixture frames as its colour
+MODES_DIR = os.path.join(HERE, "tests", "data", "torch_image_modes")
+MODES_FRAME_FILES = ("frame_prog.jpg", "frame_o6.jpg", "frame_cmyk.jpg",
+                     "frame_base.jpg")
+MODES_FRAMES = 16
+MODES_STEPS = 4
+
+
+def image_modes_step(tmp, weights, e2e_extra, synth_frames, dims, card):
+    """The fixtures' decodes against digests.json and their twins, then
+    the same capture fused from the fixture files and from PNGs of their
+    decodes: equal maps and colour priors."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from bnv_fusion_tpu_torch import run_e2e, tsdf
+    from bnv_fusion_tpu_torch.kernels import _build
+    from bnv_fusion_tpu_torch.scripts import run_inference
+    from bnv_fusion_tpu_torch.scripts import generate_fusion_data as gen
+    from bnv_fusion_tpu_torch.utils import image_io
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def step(msg, t0):
+        print(f"  {msg} ({time.time() - t0:.1f} s)", flush=True)
+
+    t0 = time.time()
+    with open(os.path.join(MODES_DIR, "digests.json")) as f:
+        want = json.load(f)
+    decoded, bad = {}, []
+    for name in sorted(want["read_image"]):
+        path = os.path.join(MODES_DIR, name)
+        img = decoded[name] = image_io.read_image(path)
+        if sha(img) != want["read_image"][name] or \
+                list(img.shape) != want["shape"][name]:
+            bad.append(f"{name} decode")
+        if name in want["jpeg_orientation"]:
+            with open(path, "rb") as f:
+                if image_io.jpeg_orientation(f.read()) != \
+                        want["jpeg_orientation"][name]:
+                    bad.append(f"{name} orientation")
+    depth_hw = synth_frames[0]["depth_raw"].shape
+    area = want[f"read_color_{depth_hw[0]}x{depth_hw[1]}"]
+    for name in MODES_FRAME_FILES:
+        if sha(image_io.read_color(os.path.join(MODES_DIR, name),
+                                   depth_hw)) != area[name]:
+            bad.append(f"{name} area resize")
+    for prog, base in want["twins"].items():
+        if not np.array_equal(decoded[prog], decoded[base]):
+            bad.append(f"{prog} != {base}")
+    if bad:
+        raise AssertionError(f"colour fixtures: {bad}")
+    step(f"colour modes: {len(decoded)} fixtures decoded to their digests, "
+         f"{len(want['twins'])} progressive files equal to their baseline "
+         f"twins", t0)
+
+    # the same capture twice: colour from the fixture files, then from
+    # PNGs of the port's decodes of them (read_image sniffs the content)
+    t0 = time.time()
+    frames = synth_frames[:MODES_FRAMES]
+    maps = []
+    for kind in ("fixtures", "png"):
+        canon = os.path.join(tmp, kind)
+        gen.write_canonical(os.path.join(canon, "scene"), [
+            (os.path.join(MODES_DIR, MODES_FRAME_FILES[i % 4]),
+             f["depth_raw"], f["T_wc"], f["intr_mat"])
+            for i, f in enumerate(frames)], dims)
+        if kind == "png":
+            for i in range(len(frames)):
+                image_io.write_png(os.path.join(canon, "scene", "image",
+                                                f"{i}.jpg"),
+                                   decoded[MODES_FRAME_FILES[i % 4]])
+        results, undo = recording(run_e2e)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        try:
+            rc = run_inference.main([
+                "scene3d", "--seqs", "scene", "--checkpoint", weights,
+                "--data_dir", canon, "--mode", "e2e", "--extra"] +
+                e2e_extra + [f"trainer.global_steps={MODES_STEPS}",
+                             f"output_dir={os.path.join(tmp, 'out_' + kind)}"])
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        if rc != 0 or len(results) != 1:
+            raise AssertionError(f"run_inference ({kind} colour) rc {rc}")
+        for name in ("seg_reduce_sorted", "fused_corner_decode"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"run_inference ({kind} colour) never "
+                                     f"launched {name}")
+        nmap = results[0][1]["nmap"]
+        if len(nmap.frames) != MODES_FRAMES or nmap.overflow != 0 or \
+                len(nmap.optimize_losses) != MODES_STEPS:
+            raise AssertionError(f"run_inference ({kind} colour): "
+                                 f"{len(nmap.frames)} frames, overflow "
+                                 f"{nmap.overflow}, "
+                                 f"{len(nmap.optimize_losses)} steps")
+        vol = tsdf.as_dense(nmap.tsdf_vol)
+        if vol.color is None:
+            raise AssertionError("model.fuse_color made no colour prior")
+        maps.append((table_by_key(nmap), vol.color.cpu().numpy(),
+                     vol.sdf.cpu().numpy(), launches))
+        del nmap, results
+    (ta, ca, sa, la), (tb, cb, sb, lb) = maps
+    same_table("fixture colour vs PNG colour", ta, tb)
+    if not (np.array_equal(ca, cb) and np.array_equal(sa, sb)):
+        raise AssertionError("fixture colour vs PNG colour: the colour "
+                             "prior differs")
+    if not np.any(ca != 0):
+        raise AssertionError("the colour prior is empty")
+    step(f"colour modes: run_inference scene3d --mode e2e, {MODES_FRAMES} "
+         f"frames ({', '.join(MODES_FRAME_FILES)} in turn), "
+         f"{MODES_STEPS} steps: launches {la} / {lb}; {len(ta[0])} voxels, "
+         f"maps and colour priors equal bit for bit from the files and from "
+         f"PNGs of their decodes", t0)
+
+    # host timings at the 240x320 frames
+    data_o6 = open(os.path.join(MODES_DIR, "frame_o6.jpg"), "rb").read()
+    img_o6 = decoded["frame_o6.jpg"]
+    t_prog = host_ms(lambda: image_io.read_image(
+        os.path.join(MODES_DIR, "frame_prog.jpg")))
+    t_base = host_ms(lambda: image_io.read_image(
+        os.path.join(MODES_DIR, "frame_base.jpg")))
+    t_orient = host_ms(lambda: image_io.apply_orientation(
+        img_o6, image_io.jpeg_orientation(data_o6)))
+    t_grow = host_ms(lambda: image_io.resize_area(
+        decoded["frame_base.jpg"], depth_hw[::-1]))
+    print(f"  {card}: host decode (median of {CODEC_REPS}) of a 240x320 "
+          f"JPEG: progressive {t_prog:.3f} ms/frame, its baseline twin "
+          f"{t_base:.3f} ms/frame", flush=True)
+    print(f"  {card}: host EXIF orientation (parse + orientation 6) of a "
+          f"240x320 decode: {t_orient:.3f} ms", flush=True)
+    print(f"  {card}: host area enlarge 240x320 -> {depth_hw[0]}x"
+          f"{depth_hw[1]}: {t_grow:.3f} ms", flush=True)
 
 
 def read_ply_header(path):
@@ -3046,7 +3211,8 @@ def main() -> int:
         print("phase datasets: the real-data path (converters, readers, "
               "run_inference, tools)", flush=True)
         t0 = time.time()
-        phase_datasets(os.path.join(tmp, "datasets"), params, e2e_final)
+        phase_datasets(os.path.join(tmp, "datasets"), params, e2e_final,
+                       card)
         print(f"phase datasets: {time.time() - t0:.1f} s", flush=True)
 
         print("phase fuse: local fusion at bench.py's point", flush=True)

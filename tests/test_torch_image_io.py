@@ -258,8 +258,15 @@ def test_read_jpeg_against_cv2(tmp_path, name, hw, params):
 
 
 def test_read_jpeg_refuses_progressive(tmp_path):
+    """A progressive file whose last scan is missing leaves coefficient bits
+    unknown; libjpeg block-smooths such a file, the port refuses it (the
+    complete files are read: tests/test_torch_image_modes.py)."""
     path = str(tmp_path / "p.jpg")
     cv2.imwrite(path, natural(40, 56), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    data = open(path, "rb").read()
+    image_io.read_jpeg(path)
+    with open(path, "wb") as f:
+        f.write(data[:data.rfind(b"\xff\xda")] + b"\xff\xd9")
     with pytest.raises(ValueError, match=r"progressive.*ROADMAP Queue 1 "
                                          r"item 16"):
         image_io.read_jpeg(path)
