@@ -1,14 +1,24 @@
 // Native image codec: PNG row filters, JPEG decoding (baseline, extended
-// sequential and progressive Huffman; 1, 3 and 4 components) and baseline
-// JPEG encoding.
+// sequential and progressive, Huffman or arithmetic coding; 1, 3 and 4
+// components) and baseline JPEG encoding.
 //
 // The JAX package reads and writes every image through cv2 (libpng and
 // libjpeg(-turbo)); the port has neither, so this file rebuilds the parts it
 // needs.  The arithmetic follows libjpeg where cv2's results depend on it:
-//   * jidctint.c  jpeg_idct_islow        (the decoder's default IDCT)
-//   * jdphuff.c   the four progressive scan kinds, into a whole-image
-//     coefficient buffer (jdcoefct.c), quantization tables latched per
-//     component at its first scan (jdinput.c latch_quant_tables)
+//   * jidctint.c  jpeg_idct_islow (the decoder's default IDCT), with the
+//     16-bit wrapping and saturation of libjpeg-turbo's SIMD version of it
+//     (jidctint-sse2.asm / -avx2.asm), which cv2 runs
+//   * jdhuff.c, jdphuff.c  Huffman scans, the four progressive kinds into a
+//     whole-image coefficient buffer (jdcoefct.c), quantization tables
+//     latched per component at its first scan (jdinput.c
+//     latch_quant_tables), and the rule for data that run out
+//     (insufficient_data: the rest of the scan is left as it was)
+//   * jdarith.c   ITU-T T.81 Annex D's binary arithmetic decoder (jaricom.c's
+//     probability table), its sequential and four progressive scan kinds,
+//     the DAC conditioning and its stop at an impossible code
+//   * jdcoefct.c  libjpeg-turbo's (>= 2.1) block smoothing of progressive
+//     files whose scans leave low-frequency bits unknown (smoothing_ok,
+//     decompress_smooth_data), as cv2's bundled libjpeg-turbo 3.1 does it
 //   * jdsample.c  h2v1/h2v2/h1v2 "fancy" triangular chroma upsampling
 //   * jdcolor.c   fixed-point YCbCr -> RGB tables, YCCK -> CMYK
 //   * jfdctint.c  jpeg_fdct_islow, jcsample.c h2v2_downsample, jccolor.c
@@ -24,10 +34,9 @@
 //
 // Exposed via a plain C ABI for ctypes.  Errors return a negative code; the
 // message is read with image_ops_error().  Return codes: -1 malformed or
-// unsupported input, -2 a JPEG coding mode the decoder does not implement
-// (arithmetic coding, lossless, hierarchical, 12-bit samples, 2 components,
-// a DNL-defined height, or progressive scans that leave coefficient bits
-// unknown).
+// unsupported input, -2 a JPEG that cv2 does not read either: a coding mode
+// the decoder does not implement (lossless, hierarchical, 12-bit samples, 2
+// components or a DNL-defined height) or a file cut off before its EOI.
 //
 // Build: c++ -O3 -shared -fPIC -std=c++17 image_ops.cpp -o libimage_ops.so
 
@@ -78,23 +87,6 @@ const int kZigzag[64 + 16] = {  // natural index of the k-th coefficient
     // extra entries absorb a corrupt run past the end of the block
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
-// jdmaster.c prepare_range_limit_table, post-IDCT part: index (x & 1023)
-// gives clamp(x + 128) for |x| < 512 (and libjpeg's wrap beyond).
-struct RangeLimit {
-  uint8_t idct[1024];
-  RangeLimit() {
-    for (int y = 0; y < 1024; y++) {
-      int v;
-      if (y < 128) v = y + 128;
-      else if (y < 512) v = 255;
-      else if (y < 896) v = 0;
-      else v = y - 896;
-      idct[y] = (uint8_t)v;
-    }
-  }
-};
-const RangeLimit kRange;
-
 inline uint8_t clamp255(int v) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
@@ -122,9 +114,112 @@ inline int64_t descale(int64_t x, int n) {
   return (x + ((int64_t)1 << (n - 1))) >> n;
 }
 
-// coef: dequantized coefficients in natural order; out: 8x8 samples with
-// row stride `stride`.
-void idct_islow(const int32_t* coef, uint8_t* out, int64_t stride) {
+inline int32_t wrap16(int32_t v) { return (int16_t)(uint16_t)(uint32_t)v; }
+inline int32_t clamp_to(int32_t v, int32_t lo, int32_t hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+// pmaddwd: two 16-bit products summed in 32 bits, wrapping
+inline uint32_t madd(int32_t a, int32_t ca, int32_t b, int32_t cb) {
+  return (uint32_t)(a * ca) + (uint32_t)(b * cb);
+}
+
+// One 1-D pass of jidctint.c over 8 inputs, as libjpeg-turbo's SIMD code
+// arranges it (jidctint-sse2.asm / -avx2.asm): the sums of two inputs in
+// 16 bits, the products and everything after in 32 bits, wrapping.  out:
+// the 8 outputs before descaling.
+void islow_1d(const int32_t* in, uint32_t* out) {
+  const uint32_t tmp3 = madd(in[2], FIX_0_541196100 + FIX_0_765366865, in[6],
+                             FIX_0_541196100);
+  const uint32_t tmp2 = madd(in[2], FIX_0_541196100, in[6],
+                             FIX_0_541196100 - FIX_1_847759065);
+  const uint32_t tmp0 = (uint32_t)(wrap16(in[0] + in[4]) * (1 << CONST_BITS));
+  const uint32_t tmp1 = (uint32_t)(wrap16(in[0] - in[4]) * (1 << CONST_BITS));
+  const uint32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const uint32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int32_t z3 = wrap16(in[7] + in[3]), z4 = wrap16(in[5] + in[1]);
+  const uint32_t z3m = madd(z3, FIX_1_175875602 - FIX_1_961570560, z4,
+                            FIX_1_175875602);
+  const uint32_t z4m = madd(z3, FIX_1_175875602, z4,
+                            FIX_1_175875602 - FIX_0_390180644);
+  const uint32_t o0 = madd(in[7], FIX_0_298631336 - FIX_0_899976223, in[1],
+                           -FIX_0_899976223) + z3m;
+  const uint32_t o3 = madd(in[7], -FIX_0_899976223, in[1],
+                           FIX_1_501321110 - FIX_0_899976223) + z4m;
+  const uint32_t o1 = madd(in[5], FIX_2_053119869 - FIX_2_562915447, in[3],
+                           -FIX_2_562915447) + z4m;
+  const uint32_t o2 = madd(in[5], -FIX_2_562915447, in[3],
+                           FIX_3_072711026 - FIX_2_562915447) + z3m;
+  out[0] = tmp10 + o3;
+  out[7] = tmp10 - o3;
+  out[1] = tmp11 + o2;
+  out[6] = tmp11 - o2;
+  out[2] = tmp12 + o1;
+  out[5] = tmp12 - o1;
+  out[3] = tmp13 + o0;
+  out[4] = tmp13 - o0;
+}
+
+// (x + 2^(n-1)) >> n in 32 bits, wrapping, then saturated to 16 bits
+inline int32_t descale16(uint32_t x, int n) {
+  return clamp_to((int32_t)(x + (1u << (n - 1))) >> n, -32768, 32767);
+}
+
+// jidctint.c's slow-but-accurate IDCT as libjpeg-turbo's SIMD code
+// computes it, which is what cv2 runs: dequantization in 16 bits
+// (pmullw), the column pass's outputs saturated to 16 bits and the samples
+// to 8 (packssdw, packsswb, then + 128), and the DC-only shortcut taken
+// only when rows 1-7 of every column are zero.  A column or row whose
+// inputs 1-7 are zero gives the full path's outputs from its DC alone (no
+// sum there can wrap), so it takes that shortcut.  deq: the dequantized
+// coefficients (natural order); ac: whether a coefficient of rows 1-7 is
+// nonzero before dequantization; out: 8x8 samples, row stride `stride`.
+void idct_islow_simd(const int32_t* deq, bool ac, uint8_t* out,
+                     int64_t stride) {
+  int32_t ws[64];
+  uint32_t o[8];
+  for (int c = 0; c < 8; c++) {
+    int32_t in[8];
+    bool col_ac = false;
+    for (int k = 0; k < 8; k++) {
+      in[k] = wrap16(deq[k * 8 + c]);
+      col_ac |= k > 0 && in[k] != 0;
+    }
+    if (!col_ac) {  // the SIMD block shortcut wraps, the full path saturates
+      const int32_t v = ac ? clamp_to(in[0] * (1 << PASS1_BITS), -32768, 32767)
+                           : wrap16(in[0] * (1 << PASS1_BITS));
+      for (int r = 0; r < 8; r++) ws[r * 8 + c] = v;
+      continue;
+    }
+    islow_1d(in, o);
+    for (int k = 0; k < 8; k++)
+      ws[k * 8 + c] = descale16(o[k], CONST_BITS - PASS1_BITS);
+  }
+  for (int r = 0; r < 8; r++) {
+    const int32_t* w = ws + r * 8;
+    uint8_t* row = out + r * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
+        w[6] == 0 && w[7] == 0) {
+      const uint32_t dc = (uint32_t)(w[0] * (1 << CONST_BITS));
+      std::memset(row, clamp_to(descale16(dc, CONST_BITS + PASS1_BITS + 3),
+                                -128, 127) + 128, 8);
+      continue;
+    }
+    islow_1d(w, o);
+    for (int k = 0; k < 8; k++)
+      row[k] = (uint8_t)(clamp_to(descale16(o[k], CONST_BITS + PASS1_BITS + 3),
+                                  -128, 127) + 128);
+  }
+}
+
+// A bound on the column pass's outputs, summed per column as coefficients
+// are dequantized: |output| <= 4 |row 0| + 5.55 (|row 1| + ... + |row 7|)
+// (the 1-D IDCT's largest weights, 8192 and 11363, over 2^11).
+inline void add_to_bound(int32_t* bound, int nat, int32_t deq) {
+  bound[nat & 7] += (nat < 8 ? 4 : 6) * (deq < 0 ? -deq : deq);
+}
+
+// jidctint.c's IDCT as its C code computes it, the samples clamped.
+void idct_islow_c(const int32_t* coef, uint8_t* out, int64_t stride) {
   int32_t ws[64];
   for (int c = 0; c < 8; c++) {
     const int32_t* in = coef + c;
@@ -178,13 +273,15 @@ void idct_islow(const int32_t* coef, uint8_t* out, int64_t stride) {
     ws[3 * 8 + c] = (int32_t)descale(tmp13 + tmp0, sh);
     ws[4 * 8 + c] = (int32_t)descale(tmp13 - tmp0, sh);
   }
+  auto sample = [](int64_t v) {
+    return (uint8_t)(v < -128 ? 0 : (v > 127 ? 255 : v + 128));
+  };
   for (int r = 0; r < 8; r++) {
     const int32_t* w = ws + r * 8;
     uint8_t* o = out + r * stride;
     if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
         w[6] == 0 && w[7] == 0) {
-      uint8_t dc = kRange.idct[(int)descale(w[0], PASS1_BITS + 3) & 1023];
-      for (int c = 0; c < 8; c++) o[c] = dc;
+      std::memset(o, sample(descale(w[0], PASS1_BITS + 3)), 8);
       continue;
     }
     int64_t z2 = w[2], z3 = w[6];
@@ -220,15 +317,30 @@ void idct_islow(const int32_t* coef, uint8_t* out, int64_t stride) {
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
     const int sh = CONST_BITS + PASS1_BITS + 3;
-    o[0] = kRange.idct[(int)descale(tmp10 + tmp3, sh) & 1023];
-    o[7] = kRange.idct[(int)descale(tmp10 - tmp3, sh) & 1023];
-    o[1] = kRange.idct[(int)descale(tmp11 + tmp2, sh) & 1023];
-    o[6] = kRange.idct[(int)descale(tmp11 - tmp2, sh) & 1023];
-    o[2] = kRange.idct[(int)descale(tmp12 + tmp1, sh) & 1023];
-    o[5] = kRange.idct[(int)descale(tmp12 - tmp1, sh) & 1023];
-    o[3] = kRange.idct[(int)descale(tmp13 + tmp0, sh) & 1023];
-    o[4] = kRange.idct[(int)descale(tmp13 - tmp0, sh) & 1023];
+    o[0] = sample(descale(tmp10 + tmp3, sh));
+    o[7] = sample(descale(tmp10 - tmp3, sh));
+    o[1] = sample(descale(tmp11 + tmp2, sh));
+    o[6] = sample(descale(tmp11 - tmp2, sh));
+    o[2] = sample(descale(tmp12 + tmp1, sh));
+    o[5] = sample(descale(tmp12 - tmp1, sh));
+    o[3] = sample(descale(tmp13 + tmp0, sh));
+    o[4] = sample(descale(tmp13 - tmp0, sh));
   }
+}
+
+// The IDCT cv2 computes.  Where every column's bound (add_to_bound) stays
+// below 2^14, no value the SIMD code holds in 16 bits leaves them (the
+// products, the sums of two, either pass's outputs), and jidctint.c's C
+// form gives its bits, as for any real image; corrupt or zero-filled data
+// takes the SIMD code's 16-bit arithmetic.  deq: the dequantized
+// coefficients (natural order); ac: whether a coefficient of rows 1-7 is
+// nonzero before dequantization.
+void idct_islow(const int32_t* deq, bool ac, const int32_t* bound,
+                uint8_t* out, int64_t stride) {
+  if (*std::max_element(bound, bound + 8) < (1 << 14))
+    idct_islow_c(deq, out, stride);
+  else
+    idct_islow_simd(deq, ac, out, stride);
 }
 
 // ---------------------------------------------------------------------------
@@ -293,22 +405,28 @@ struct BitReader {
   uint64_t acc = 0;
   int nbits = 0;
   bool at_marker = false;
+  // jdhuff.c's insufficient_data: a bit was taken past the marker (or the
+  // end) that closes the entropy-coded data; real = data bits still in acc
+  // once that marker is reached.  Zeros are supplied from there on.
+  bool insufficient = false;
+  int real = 0;
 
   void fill() {
     while (nbits <= 56) {
       uint32_t b = 0;
-      if (!at_marker && p < end) {
-        b = *p;
-        if (b == 0xFF) {
-          uint32_t nx = (p + 1 < end) ? p[1] : 0xD9;
-          if (nx == 0x00) {
-            p += 2;
-          } else {
-            at_marker = true;  // feed zeros past a marker, as libjpeg does
-            b = 0;
-          }
+      if (!at_marker) {
+        if (p < end && *p != 0xFF) {
+          b = *p++;
         } else {
-          p++;
+          const uint8_t* q = p;
+          while (q < end && *q == 0xFF) q++;  // FF and any fill bytes
+          if (q > p && q < end && *q == 0x00) {
+            b = 0xFF;  // a stuffed zero
+            p = q + 1;
+          } else {
+            at_marker = true;  // p stays on the marker for parse()
+            real = nbits;
+          }
         }
       }
       acc |= (uint64_t)b << (56 - nbits);
@@ -322,6 +440,7 @@ struct BitReader {
   inline void skip(int n) {
     acc <<= n;
     nbits -= n;
+    if (at_marker && (real -= n) < 0) insufficient = true;
   }
   inline uint32_t get(int n) {  // n raw bits, n <= 16
     if (n == 0) return 0;
@@ -350,18 +469,149 @@ struct BitReader {
     skip(l);
     return h.vals[(code >> (16 - l)) + h.valoff[l]];
   }
-  // Drop the bit buffer and step over the next RSTn marker.
+  // Drop the bit buffer and step over the next RSTn marker; data that ran
+  // out stays out unless an RSTn was found (jdhuff.c process_restart).
   void restart() {
     acc = 0;
     nbits = 0;
     at_marker = false;
+    if (skip_restart_marker(p, end)) insufficient = false;
+  }
+
+  // Move p past the next RSTn marker (true), or onto the next other
+  // marker.
+  static bool skip_restart_marker(const uint8_t*& p, const uint8_t* end) {
     while (p + 1 < end) {
       if (p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF) {
-        if (p[1] >= 0xD0 && p[1] <= 0xD7) p += 2;
-        return;
+        if (p[1] < 0xD0 || p[1] > 0xD7) return false;
+        p += 2;
+        return true;
       }
       p++;
     }
+    return false;
+  }
+};
+
+// jaricom.c jpeg_aritab: T.81 Table D.2 (Qe, Next_Index_LPS, Next_Index_MPS,
+// Switch_MPS) packed as libjpeg packs it, and entry 113, the fixed
+// probability 0.5 of the sign and DC refinement bits.
+#define V(qe, nlps, nmps, sw) \
+  (((uint32_t)(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+const uint32_t kAriTab[114] = {
+    V(0x5a1d, 1, 1, 1), V(0x2586, 14, 2, 0), V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0), V(0x03d8, 20, 5, 0), V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0), V(0x006f, 28, 8, 0), V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0), V(0x000d, 35, 11, 0), V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0), V(0x0001, 12, 13, 0), V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0), V(0x2cf2, 38, 17, 0), V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0), V(0x1182, 42, 20, 0), V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0), V(0x072f, 46, 23, 0), V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0), V(0x0303, 51, 26, 0), V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0), V(0x0144, 56, 29, 0), V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0), V(0x008a, 60, 32, 0), V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0), V(0x003b, 32, 35, 0), V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1), V(0x484c, 64, 38, 0), V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0), V(0x261f, 68, 41, 0), V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0), V(0x1518, 72, 44, 0), V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0), V(0x0bfb, 75, 47, 0), V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0), V(0x0706, 79, 50, 0), V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0), V(0x040f, 50, 53, 0), V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0), V(0x025c, 53, 56, 0), V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0), V(0x0160, 56, 59, 0), V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0), V(0x00cb, 59, 62, 0), V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0), V(0x5b12, 65, 65, 1), V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0), V(0x37d8, 82, 68, 0), V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0), V(0x2379, 86, 71, 0), V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0), V(0x174e, 72, 74, 0), V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0), V(0x0f6b, 74, 77, 0), V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0), V(0x0a40, 77, 48, 0), V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0), V(0x438e, 89, 83, 0), V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0), V(0x2eae, 92, 86, 0), V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0), V(0x5570, 88, 89, 1), V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0), V(0x3e22, 97, 92, 0), V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0), V(0x2e17, 93, 86, 0), V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0), V(0x47e5, 102, 98, 0), V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0), V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+constexpr uint8_t kFixedBin = 113;
+
+// jdarith.c's decoder: the code register c (interval base and the bits not
+// yet used, split at ct) and the interval size a.  ct = -16 makes the next
+// decision load two bytes (each scan and restart interval starts so); ct =
+// -1 marks a scan stopped at an impossible code.  Past a marker it reads
+// zeros, as T.81 prescribes, and leaves p on the marker for parse().
+struct ArithDecoder {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool at_marker = false;
+  static constexpr bool insufficient = false;  // zeros past a marker are
+                                                // data here (T.81 D.2.6)
+  int next_byte() {
+    if (at_marker) return 0;
+    if (p >= end) fail("truncated JPEG (no EOI)", -2);
+    int d = *p++;
+    if (d != 0xFF) return d;
+    const uint8_t* marker = p - 1;
+    do {  // swallow fill bytes
+      if (p >= end) fail("truncated JPEG (no EOI)", -2);
+      d = *p++;
+    } while (d == 0xFF);
+    if (d == 0) return 0xFF;  // a stuffed zero
+    at_marker = true;
+    p = marker;
+    return 0;
+  }
+  // One binary decision with statistics bin *st (T.81 D.2.4-D.2.6).
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the 2 initial bytes
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = (int)(qe & 0xFF);  // Next_Index_LPS + Switch_MPS
+    qe >>= 8;
+    const int nm = (int)(qe & 0xFF);  // Next_Index_MPS
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS after all
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  // Step over the next RSTn marker and start the decoder afresh.
+  void restart() {
+    at_marker = false;
+    BitReader::skip_restart_marker(p, end);
+    c = a = 0;
+    ct = -16;
   }
 };
 
@@ -371,6 +621,7 @@ struct Component {
   int64_t cw = 0, ch = 0;       // downsampled size
   int64_t pw = 0, ph = 0;       // plane size (whole MCUs)
   int32_t dc_pred = 0;
+  int dc_context = 0;  // arithmetic coding: the DC statistics' offset
   std::vector<uint8_t> plane;
   // progressive: quantized coefficients of every block of the plane
   // (natural order), the quantization table latched at the component's
@@ -380,18 +631,18 @@ struct Component {
   bool latched = false;
   int32_t qlatch[64] = {0};
   int coef_bits[64];
+  int prev_bits[64];  // coef_bits before the component's latest scan
   int16_t* block(int64_t bx, int64_t by) {
     return coef.data() + (by * (pw / 8) + bx) * 64;
   }
 };
 
-// Frame types (and the arithmetic-conditioning marker) of the coding modes
-// that are not implemented: raises for them, returns for any other marker.
+// Frame types of the coding modes that are not implemented (cv2 reads none
+// of them): raises for them, returns for any other marker.
 void refuse_sof(int m) {
-  if (m == 0xC3) fail("lossless JPEG is not supported", -2);
-  if (m >= 0xC5 && m <= 0xC7) fail("hierarchical JPEG is not supported", -2);
-  if (m >= 0xC9 && m <= 0xCF)
-    fail("arithmetic-coded JPEG is not supported", -2);
+  if (m == 0xC3 || m == 0xCB) fail("lossless JPEG is not supported", -2);
+  if ((m >= 0xC5 && m <= 0xC7) || (m >= 0xCD && m <= 0xCF))
+    fail("hierarchical JPEG is not supported", -2);
 }
 
 struct JpegDecoder {
@@ -402,18 +653,29 @@ struct JpegDecoder {
   int hmax = 1, vmax = 1;
   int64_t mcux = 0, mcuy = 0;
   int restart_interval = 0;
-  bool have_frame = false, progressive = false;
+  int64_t last_good_row = 0;
+  int scans = 0;
+  bool have_frame = false, progressive = false, arith = false;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
   int32_t qt[4][64];
   bool qt_present[4] = {false, false, false, false};
   HuffTable dc[4], ac[4];
   Component comp[4];
+  // arithmetic coding (jdarith.c): the DAC conditioning of each table
+  // (defaults L = 0, U = 1, Kx = 5, reset at SOI) and the statistics bins
+  uint8_t arith_L[16], arith_U[16], arith_K[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = kFixedBin;
 
-  JpegDecoder(const uint8_t* d, int64_t len) : data(d), n(len) {}
+  JpegDecoder(const uint8_t* d, int64_t len) : data(d), n(len) {
+    std::fill(arith_L, arith_L + 16, 0);
+    std::fill(arith_U, arith_U + 16, 1);
+    std::fill(arith_K, arith_K + 16, 5);
+  }
 
   int u8() {
-    if (pos >= n) fail("truncated JPEG");
+    if (pos >= n) fail("truncated JPEG (no EOI)", -2);
     return data[pos++];
   }
   int u16() {
@@ -427,7 +689,7 @@ struct JpegDecoder {
     for (;;) {
       while (pos < n && data[pos] != 0xFF) pos++;
       while (pos < n && data[pos] == 0xFF) pos++;
-      if (pos >= n) fail("truncated JPEG (no EOI)");
+      if (pos >= n) fail("truncated JPEG (no EOI)", -2);
       int m = data[pos++];
       if (m != 0x00) return m;
     }
@@ -472,9 +734,11 @@ struct JpegDecoder {
       c.pw = mcux * c.h * 8;
       c.ph = mcuy * c.v * 8;
       std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      std::fill(c.prev_bits, c.prev_bits + 64, -1);
       if (!alloc) continue;
+      // a sequential block never decoded is an IDCT of zeros: mid-grey
       if (progressive) c.coef.assign((size_t)(c.pw / 8 * c.ph / 8 * 64), 0);
-      else c.plane.assign((size_t)(c.pw * c.ph), 0);
+      else c.plane.assign((size_t)(c.pw * c.ph), 128);
     }
     have_frame = true;
   }
@@ -514,6 +778,25 @@ struct JpegDecoder {
     if (pos != stop) fail("bad DHT length");
   }
 
+  // jdmarker.c get_dac: DC tables take L (low nibble) <= U (high nibble),
+  // AC tables Kx, taken as it is (libjpeg checks no range there).
+  void read_dac() {
+    int len = u16();
+    int64_t stop = pos + len - 2;
+    while (pos < stop) {
+      int index = u8(), val = u8();
+      if (index >= 32) fail("bad DAC table index");
+      if (index >= 16) {
+        arith_K[index - 16] = (uint8_t)val;
+      } else {
+        arith_L[index] = (uint8_t)(val & 15);
+        arith_U[index] = (uint8_t)(val >> 4);
+        if (arith_L[index] > arith_U[index]) fail("bad DAC value");
+      }
+    }
+    if (pos != stop) fail("bad DAC length");
+  }
+
   void read_app(int marker) {
     int64_t len = u16();
     int64_t start = pos;
@@ -528,39 +811,70 @@ struct JpegDecoder {
     pos = start + len - 2;
   }
 
+  // Each value kept in 16 bits (libjpeg's JCOEF), dequantized as decoded.
   void decode_block(BitReader& br, Component& c, int64_t bx, int64_t by) {
-    int32_t coef[64];
-    std::memset(coef, 0, sizeof(coef));
-    const HuffTable& hd = dc[c.td];
-    const HuffTable& ha = ac[c.ta];
-    int t = br.decode(hd);
+    int32_t deq[64], bound[8] = {0};
+    std::memset(deq, 0, sizeof(deq));
+    const int32_t* q = qt[c.tq];
+    int t = br.decode(dc[c.td]);
     if (t > 16) fail("corrupt DC coefficient");
     c.dc_pred += br.receive(t);
-    const int32_t* q = qt[c.tq];
-    coef[0] = c.dc_pred * q[0];
+    deq[0] = (int16_t)c.dc_pred * q[0];
+    add_to_bound(bound, 0, deq[0]);
+    bool rows_ac = false;
+    const HuffTable& ha = ac[c.ta];
     for (int k = 1; k < 64;) {
       int rs = br.decode(ha);
       int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
-        int nat = kZigzag[k];
-        coef[nat] = br.receive(s) * q[nat];
+        const int nat = kZigzag[k];
+        const int16_t v = (int16_t)br.receive(s);
+        deq[nat] = v * q[nat];
+        add_to_bound(bound, nat, deq[nat]);
+        rows_ac |= nat >= 8 && v != 0;
         k++;
       } else {
         if (r != 15) break;
         k += 16;
       }
     }
-    idct_islow(coef, c.plane.data() + by * 8 * c.pw + bx * 8, c.pw);
+    idct_islow(deq, rows_ac, bound, c.plane.data() + by * 8 * c.pw + bx * 8,
+               c.pw);
+  }
+
+  // Inverse-transform blk (natural order, quantized with q) into block
+  // (bx, by) of c's plane.
+  static void idct_block(const int16_t* blk, const int32_t* q, Component& c,
+                         int64_t bx, int64_t by) {
+    int32_t deq[64], bound[8];
+    int rows = 0;  // any coefficient of rows 1-7
+    for (int k = 0; k < 64; k++) deq[k] = blk[k] * q[k];
+    for (int k = 0; k < 8; k++) bound[k] = 4 * std::abs(deq[k]);
+    for (int k = 8; k < 64; k++) {
+      bound[k & 7] += 6 * std::abs(deq[k]);
+      rows |= blk[k];
+    }
+    idct_islow(deq, rows != 0, bound, c.plane.data() + by * 8 * c.pw + bx * 8,
+               c.pw);
   }
 
   // Run fn(block column, block row, component) over a scan's blocks, MCU
   // by MCU, with the restart interval: a single-component scan covers the
   // component's own ceil(cw/8) x ceil(ch/8) blocks, an interleaved one
-  // whole MCUs.  on_restart runs after each RSTn.
-  template <class Fn, class Restart>
-  void for_each_block(BitReader& br, Component** sc, int ns, Fn fn,
+  // whole MCUs.  on_restart runs after each RSTn.  An MCU that starts
+  // after the data ran out is skipped, its blocks left as they are, and
+  // last_good_row keeps the iMCU row of the last MCU that started with
+  // data (jdhuff.c / jdphuff.c insufficient_data, jdcoefct.c
+  // last_good_iMCU_row).
+  template <class Reader, class Fn, class Restart>
+  void for_each_block(Reader& br, Component** sc, int ns, Fn fn,
                       Restart on_restart) {
+    auto mcu = [&](int64_t imcu_row) {
+      if (br.insufficient) return false;
+      last_good_row = imcu_row;
+      return true;
+    };
     int64_t todo = restart_interval;
     auto maybe_restart = [&](bool last) {
       if (!restart_interval || last) return;
@@ -576,18 +890,19 @@ struct JpegDecoder {
       int64_t bw = (c.cw + 7) / 8, bh = (c.ch + 7) / 8;
       for (int64_t by = 0; by < bh; by++)
         for (int64_t bx = 0; bx < bw; bx++) {
-          fn(bx, by, c);
+          if (mcu(by / c.v)) fn(bx, by, c);
           maybe_restart(by == bh - 1 && bx == bw - 1);
         }
     } else {
       for (int64_t my = 0; my < mcuy; my++)
         for (int64_t mx = 0; mx < mcux; mx++) {
-          for (int i = 0; i < ns; i++) {
-            Component& c = *sc[i];
-            for (int yy = 0; yy < c.v; yy++)
-              for (int xx = 0; xx < c.h; xx++)
-                fn(mx * c.h + xx, my * c.v + yy, c);
-          }
+          if (mcu(my))
+            for (int i = 0; i < ns; i++) {
+              Component& c = *sc[i];
+              for (int yy = 0; yy < c.v; yy++)
+                for (int xx = 0; xx < c.h; xx++)
+                  fn(mx * c.h + xx, my * c.v + yy, c);
+            }
           maybe_restart(my == mcuy - 1 && mx == mcux - 1);
         }
     }
@@ -599,6 +914,7 @@ struct JpegDecoder {
     int ns = u8();
     if (ns < 1 || ns > 4 || len != 6 + 2 * ns) fail("bad SOS");
     Component* sc[4];
+    const int ntables = arith ? 16 : 4;  // NUM_ARITH_TBLS, NUM_HUFF_TBLS
     for (int i = 0; i < ns; i++) {
       int cid = u8(), tdta = u8();
       sc[i] = nullptr;
@@ -607,17 +923,26 @@ struct JpegDecoder {
       if (!sc[i]) fail("SOS names an unknown component");
       sc[i]->td = tdta >> 4;
       sc[i]->ta = tdta & 15;
-      if (sc[i]->td > 3 || sc[i]->ta > 3)
-        fail("SOS uses a missing Huffman table");
+      if (sc[i]->td >= ntables || sc[i]->ta >= ntables)
+        fail("SOS uses a missing entropy-coding table");
       if (!qt_present[sc[i]->tq]) fail("component uses a missing DQT table");
       sc[i]->dc_pred = 0;
     }
     int ss = u8(), se = u8(), ahal = u8();
+    const int ah = ahal >> 4, al = ahal & 15;
+    scans++;
+    if (progressive) start_progressive_scan(sc, ns, ss, se, ah, al);
+    else if (ss != 0 || se != 63 || ahal != 0) fail("bad sequential scan");
+    if (arith) {
+      ArithDecoder ad{data + pos, data + n};
+      arith_scan(ad, sc, ns, ss, se, ah, al);
+      pos = ad.p - data;  // on the marker that ended the scan, if it was read
+      return;
+    }
     BitReader br{data + pos, data + n};
     if (progressive) {
-      progressive_scan(br, sc, ns, ss, se, ahal >> 4, ahal & 15);
+      progressive_scan(br, sc, ns, ss, se, ah, al);
     } else {
-      if (ss != 0 || se != 63 || ahal != 0) fail("bad sequential scan");
       for (int i = 0; i < ns; i++)
         if (!dc[sc[i]->td].present || !ac[sc[i]->ta].present)
           fail("SOS uses a missing Huffman table");
@@ -631,26 +956,39 @@ struct JpegDecoder {
     pos = br.p - data;  // the next marker search starts here
   }
 
-  // One progressive scan into the coefficient buffers (jdphuff.c:
-  // start_pass_phuff_decoder's checks, then decode_mcu_DC_first,
-  // decode_mcu_DC_refine, decode_mcu_AC_first or decode_mcu_AC_refine).
-  // libjpeg only warns about a scan order that skips or repeats bits; so
-  // does nothing here.
-  void progressive_scan(BitReader& br, Component** sc, int ns, int ss, int se,
-                        int ah, int al) {
+  // A progressive scan's checks (jdphuff.c and jdarith.c start_pass), the
+  // quantization table latched at each component's first scan (jdinput.c
+  // latch_quant_tables) and the low bits the scan leaves unknown.  libjpeg
+  // only warns about a scan order that skips or repeats bits; so does
+  // nothing here.
+  void start_progressive_scan(Component** sc, int ns, int ss, int se, int ah,
+                              int al) {
     const bool dc_band = ss == 0;
     bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
     if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
     if (bad) fail("bad progressive scan parameters");
     for (int i = 0; i < ns; i++) {
       Component& c = *sc[i];
-      if (dc_band ? (ah == 0 && !dc[c.td].present) : !ac[c.ta].present)
-        fail("SOS uses a missing Huffman table");
-      if (!c.latched) {  // jdinput.c latch_quant_tables
+      if (!c.latched) {
         std::memcpy(c.qlatch, qt[c.tq], sizeof(c.qlatch));
         c.latched = true;
       }
+      for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+        c.prev_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
       for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
+    }
+  }
+
+  // One progressive Huffman scan into the coefficient buffers (jdphuff.c
+  // decode_mcu_DC_first, decode_mcu_DC_refine, decode_mcu_AC_first or
+  // decode_mcu_AC_refine).
+  void progressive_scan(BitReader& br, Component** sc, int ns, int ss, int se,
+                        int ah, int al) {
+    const bool dc_band = ss == 0;
+    for (int i = 0; i < ns; i++) {
+      const Component& c = *sc[i];
+      if (dc_band ? (ah == 0 && !dc[c.td].present) : !ac[c.ta].present)
+        fail("SOS uses a missing Huffman table");
     }
     const int p1 = 1 << al, m1 = -p1;
     int eobrun = 0;
@@ -728,40 +1066,308 @@ struct JpegDecoder {
     }
   }
 
-  // After the last scan: libjpeg block-smooths a progressive image whose
-  // first AC coefficients still have unknown bits (jdcoefct.c
-  // smoothing_ok, SAVED_COEFS = 10); that is refused.  Otherwise every
-  // block is dequantized with its latched table and inverse-transformed,
-  // as decompress_data does.
-  void finish_progressive() {
-    bool useful = false;
-    for (int i = 0; i < ncomp; i++) {
-      const Component& c = comp[i];
-      const int32_t* q = c.qlatch;
-      if (!c.latched || q[0] == 0 || q[1] == 0 || q[8] == 0 || q[16] == 0 ||
-          q[9] == 0 || q[2] == 0 || q[3] == 0 || q[10] == 0 || q[17] == 0 ||
-          q[24] == 0 || c.coef_bits[0] < 0) {
-        useful = false;
-        break;
-      }
-      for (int k = 1; k < 10; k++) useful |= c.coef_bits[k] != 0;
+  // ---- arithmetic coding (jdarith.c) ----
+
+  // Figures F.19 and F.21-F.24: one DC difference, added to c.dc_pred
+  // modulo 2^16; false at an impossible magnitude.
+  bool arith_dc(ArithDecoder& ad, Component& c) {
+    uint8_t* const stats = dc_stats[c.td];
+    uint8_t* st = stats + c.dc_context;
+    if (ad.decode(st) == 0) {
+      c.dc_context = 0;
+      return true;
     }
-    if (useful)
-      fail("progressive JPEG whose scans leave coefficient bits unknown "
-           "(libjpeg block-smooths it) is not supported", -2);
-    int32_t deq[64];
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m) {
+      st = stats + 20;  // X1
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ad.ct = -1;
+          return false;
+        }
+        st++;
+      }
+    }
+    // F.1.4.4.1.2: the next difference's conditioning from this one's size
+    if (m < ((1 << arith_L[c.td]) >> 1)) c.dc_context = 0;
+    else if (m > ((1 << arith_U[c.td]) >> 1)) c.dc_context = 12 + sign * 4;
+    else c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    c.dc_pred = (c.dc_pred + (sign ? -v : v)) & 0xffff;
+    return true;
+  }
+
+  // Figure F.20: the AC coefficients ss..se of one block, each nonzero one
+  // passed to store(k, value); a run or magnitude past its end stops the
+  // scan (ct = -1).
+  template <class Store>
+  void arith_ac(ArithDecoder& ad, int tbl, int ss, int se, Store store) {
+    uint8_t* const stats = ac_stats[tbl];
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ad.decode(st)) return;  // end of block
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ad.ct = -1;
+          return;
+        }
+      }
+      const int sign = ad.decode(&fixed_bin);
+      st += 2;
+      int m = ad.decode(st);
+      if (m && ad.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= arith_K[tbl] ? 189 : 217);
+        while (ad.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ad.ct = -1;
+            return;
+          }
+          st++;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ad.decode(st)) v |= m;
+      v += 1;
+      store(k, sign ? -v : v);
+    }
+  }
+
+  // One arithmetic-coded scan (jdarith.c start_pass, then decode_mcu or
+  // the progressive decode_mcu_DC_first, _DC_refine, _AC_first or
+  // _AC_refine).  Statistics and DC predictions start afresh at the scan
+  // and at each restart.  An impossible code stops decoding until the next
+  // restart marker, as libjpeg's ct = -1 does, and cv2 returns the image
+  // all the same: the blocks not reached keep what they had (in a
+  // sequential scan, zero coefficients).
+  void arith_scan(ArithDecoder& ad, Component** sc, int ns, int ss, int se,
+                  int ah, int al) {
+    const bool dc_stats_used = !progressive || (ss == 0 && ah == 0);
+    const bool ac_stats_used = !progressive || ss != 0;
+    auto reset = [&] {
+      for (int i = 0; i < ns; i++) {
+        Component& c = *sc[i];
+        if (dc_stats_used) {
+          std::memset(dc_stats[c.td], 0, sizeof(dc_stats[0]));
+          c.dc_pred = 0;
+          c.dc_context = 0;
+        }
+        if (ac_stats_used) std::memset(ac_stats[c.ta], 0, sizeof(ac_stats[0]));
+      }
+    };
+    reset();
+    const int p1 = 1 << al, m1 = -p1;
+    if (!progressive) {
+      for_each_block(ad, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        int16_t blk[64] = {0};
+        if (ad.ct != -1 && arith_dc(ad, c)) {
+          blk[0] = (int16_t)c.dc_pred;
+          arith_ac(ad, c.ta, 1, 63,
+                   [&](int k, int v) { blk[kZigzag[k]] = (int16_t)v; });
+        }
+        idct_block(blk, qt[c.tq], c, bx, by);
+      }, reset);
+    } else if (ss == 0 && ah == 0) {
+      for_each_block(ad, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        if (ad.ct != -1 && arith_dc(ad, c))
+          c.block(bx, by)[0] = (int16_t)((uint32_t)c.dc_pred << al);
+      }, reset);
+    } else if (ss == 0) {  // the next bit of each DC, at probability 0.5
+      for_each_block(ad, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        if (ad.decode(&fixed_bin))
+          c.block(bx, by)[0] = (int16_t)(c.block(bx, by)[0] | p1);
+      }, reset);
+    } else if (ah == 0) {
+      for_each_block(ad, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        if (ad.ct == -1) return;
+        int16_t* blk = c.block(bx, by);
+        arith_ac(ad, c.ta, ss, se, [&](int k, int v) {
+          blk[kZigzag[k]] = (int16_t)((uint32_t)v << al);
+        });
+      }, reset);
+    } else {
+      for_each_block(ad, sc, ns, [&](int64_t bx, int64_t by, Component& c) {
+        if (ad.ct == -1) return;
+        int16_t* blk = c.block(bx, by);
+        uint8_t* const stats = ac_stats[c.ta];
+        int kex = se;  // the previous stages' end of block
+        while (kex > 0 && !blk[kZigzag[kex]]) kex--;
+        for (int k = ss; k <= se; k++) {
+          uint8_t* st = stats + 3 * (k - 1);
+          if (k > kex && ad.decode(st)) return;  // end of block
+          for (;;) {
+            int16_t* t = blk + kZigzag[k];
+            if (*t) {  // nonzero before: its correction bit
+              if (ad.decode(st + 2)) *t = (int16_t)(*t + (*t < 0 ? m1 : p1));
+              break;
+            }
+            if (ad.decode(st + 1)) {  // newly nonzero
+              *t = (int16_t)(ad.decode(&fixed_bin) ? m1 : p1);
+              break;
+            }
+            st += 3;
+            if (++k > se) {
+              ad.ct = -1;
+              return;
+            }
+          }
+        }
+      }, reset);
+    }
+  }
+
+  // ---- the output of a progressive file ----
+
+  // As jdcoefct.c's output pass sees the coefficient buffer in cv2's
+  // non-buffered decode, where jpeg_start_decompress has absorbed the whole
+  // file first: every block dequantized with its latched table and
+  // inverse-transformed (decompress_data), after block smoothing where
+  // smoothing_ok allows it.
+  void finish_progressive() {
+    const bool smooth = smoothing_ok();
     for (int i = 0; i < ncomp; i++) {
       Component& c = comp[i];
       c.plane.assign((size_t)(c.pw * c.ph), 0);
-      for (int64_t by = 0; by < c.ph / 8; by++)
-        for (int64_t bx = 0; bx < c.pw / 8; bx++) {
-          const int16_t* blk = c.block(bx, by);
-          for (int k = 0; k < 64; k++) deq[k] = blk[k] * c.qlatch[k];
-          idct_islow(deq, c.plane.data() + by * 8 * c.pw + bx * 8, c.pw);
-        }
+      if (smooth) {
+        smooth_component(c);
+      } else {
+        for (int64_t by = 0; by < c.ph / 8; by++)
+          for (int64_t bx = 0; bx < c.pw / 8; bx++)
+            idct_block(c.block(bx, by), c.qlatch, c, bx, by);
+      }
       std::vector<int16_t>().swap(c.coef);
     }
   }
+
+  // jdcoefct.c smoothing_ok (SAVED_COEFS = 10): every component has its
+  // table latched with nonzero Q for the DC and AC 1-9 (zigzag order) and
+  // its DC at least partly known, and some component still lacks bits of
+  // one of those 9 AC coefficients.
+  bool smoothing_ok() const {
+    bool useful = false;
+    for (int i = 0; i < ncomp; i++) {
+      const Component& c = comp[i];
+      if (!c.latched || c.coef_bits[0] < 0) return false;
+      for (int k = 0; k < 10; k++)
+        if (c.qlatch[kZigzag[k]] == 0) return false;
+      for (int k = 1; k < 10; k++) useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data as libjpeg-turbo has it since 2.1:
+  // in each block, on the quantized coefficients, each of AC 1-9 that is
+  // zero and not fully known is estimated from the DC values of the 5x5
+  // blocks around it (Q-weighted, rounded as libjpeg rounds, clamped below
+  // 2^Al); where no AC bit at all is known (only DC scans so far), AC 6-9
+  // and the DC itself too, with a Gaussian-like kernel.  The window clamps
+  // at the component's first and last block column; its rows clamp as
+  // libjpeg's iMCU-row bookkeeping does, which reckons with the last iMCU
+  // row's block count for every row and so may reach MCU padding rows or
+  // clamp early.  Rows past the last one a scan reached with data (a file
+  // cut inside a scan) take the bits known before the component's latest
+  // scan.  cv2 decodes without buffered-image mode: the whole file has
+  // been read, so no other scan is in progress.
+  void smooth_component(Component& c) {
+    int latch[10], prev_latch[10];
+    for (int k = 0; k < 10; k++) {
+      latch[k] = c.coef_bits[k];
+      prev_latch[k] = scans > 1 ? c.prev_bits[k] : -1;
+    }
+    const int32_t* q = c.qlatch;
+    const int64_t Q00 = q[0];
+    const int64_t wib = (c.cw + 7) / 8, hib = (c.ch + 7) / 8, total = mcuy;
+    int16_t ws[64];
+    int64_t d[26];  // libjpeg's DC01..DC25, the 5x5 window row by row
+    const int* bits = latch;
+    // the estimate of coefficient zz (natural position nat) from sum
+    auto estimate = [&](int zz, int64_t sum) {
+      const int nat = kZigzag[zz], al = bits[zz];
+      if (al == 0 || ws[nat] != 0) return;
+      const int64_t qk = q[nat], num = Q00 * sum;
+      int pred = (int)(((qk << 7) + (num >= 0 ? num : -num)) / (qk << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      ws[nat] = (int16_t)(num >= 0 ? pred : -pred);
+    };
+    for (int64_t r = 0; r < total; r++) {
+      bits = r > last_good_row ? prev_latch : latch;
+      bool change_dc = true;
+      for (int k = 1; k < 10; k++) change_dc &= bits[k] == -1;
+      int block_rows = c.v;
+      if (r == total - 1 && hib % c.v) block_rows = (int)(hib % c.v);
+      const int64_t image_rows = block_rows * total;
+      for (int b = 0; b < block_rows; b++) {
+        const int64_t ib = r * block_rows + b, y = r * c.v + b;
+        int64_t rows[5];
+        rows[2] = y;
+        rows[1] = ib > 0 ? y - 1 : y;
+        rows[0] = ib > 1 ? y - 2 : rows[1];
+        rows[3] = ib < image_rows - 1 ? y + 1 : y;
+        rows[4] = ib < image_rows - 2 ? y + 2 : rows[3];
+        for (int64_t x = 0; x < wib; x++) {
+          for (int i = 0; i < 5; i++)
+            for (int j = 0; j < 5; j++) {
+              int64_t xx = std::min(std::max(x + j - 2, (int64_t)0), wib - 1);
+              d[1 + i * 5 + j] = c.block(xx, rows[i])[0];
+            }
+          std::memcpy(ws, c.block(x, y), sizeof(ws));
+          if (change_dc) {
+            estimate(1, -d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] -
+                            13 * d[9] + 3 * d[10] - 3 * d[11] + 38 * d[12] -
+                            38 * d[14] + 3 * d[15] - 3 * d[16] + 13 * d[17] -
+                            13 * d[19] + 3 * d[20] - d[21] - d[22] + d[24] +
+                            d[25]);
+            estimate(2, -d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] +
+                            13 * d[7] + 38 * d[8] + 13 * d[9] - d[10] +
+                            d[16] - 13 * d[17] - 38 * d[18] - 13 * d[19] +
+                            d[20] + d[21] + 3 * d[22] + 3 * d[23] +
+                            3 * d[24] + d[25]);
+            estimate(3, d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] -
+                            14 * d[13] - 5 * d[14] + 2 * d[17] + 7 * d[18] +
+                            2 * d[19] + d[23]);
+            estimate(4, -d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] +
+                            9 * d[19] + d[21] - d[25]);
+            estimate(5, 2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] -
+                            14 * d[13] + 7 * d[14] + d[15] + 2 * d[17] -
+                            5 * d[18] + 2 * d[19]);
+            estimate(6, d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]);
+            estimate(7, d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]);
+            estimate(8, d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]);
+            estimate(9, d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]);
+            const int64_t num =
+                Q00 * (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] -
+                       6 * d[6] + 6 * d[7] + 42 * d[8] + 6 * d[9] - 6 * d[10] -
+                       8 * d[11] + 42 * d[12] + 152 * d[13] + 42 * d[14] -
+                       8 * d[15] - 6 * d[16] + 6 * d[17] + 42 * d[18] +
+                       6 * d[19] - 6 * d[20] - 2 * d[21] - 6 * d[22] -
+                       8 * d[23] - 6 * d[24] - 2 * d[25]);
+            const int pred =
+                (int)(((Q00 << 7) + (num >= 0 ? num : -num)) / (Q00 << 8));
+            ws[0] = (int16_t)(num >= 0 ? pred : -pred);
+          } else {
+            estimate(1, -7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]);
+            estimate(2, -7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]);
+            estimate(3, -d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]);
+            estimate(4, d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] -
+                            d[20] + d[22] - d[24] + d[4] - d[6] + 10 * d[7] -
+                            10 * d[9]);
+            estimate(5, -d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]);
+          }
+          idct_block(ws, q, c, x, y);
+        }
+      }
+    }
+  }
+
   void parse() {
     if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG file");
     pos = 2;
@@ -773,7 +1379,10 @@ struct JpegDecoder {
       switch (m) {
         case 0xC0: case 0xC1: read_sof(true, false); break;
         case 0xC2: read_sof(true, true); break;
+        case 0xC9: arith = true; read_sof(true, false); break;
+        case 0xCA: arith = true; read_sof(true, true); break;
         case 0xC4: read_dht(); break;
+        case 0xCC: read_dac(); break;
         case 0xDB: read_dqt(); break;
         case 0xDD:
           if (u16() != 4) fail("bad DRI");
@@ -1508,8 +2117,8 @@ int image_ops_jpeg_header(const uint8_t* data, int64_t n, int32_t* info) {
     d.pos = 2;
     for (;;) {
       int m = d.next_marker();
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-        d.read_sof(false, m == 0xC2);
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
+        d.read_sof(false, m == 0xC2 || m == 0xCA);
         break;
       }
       refuse_sof(m);

@@ -16,6 +16,16 @@ Colour arrays are RGB, not cv2's BGR: the JAX readers flip BGR at once
 file's EXIF orientation as ``cv2.IMREAD_COLOR`` does; the unchanged PNG read
 (depth, confidence) ignores it, as ``cv2.imread(path, -1)`` does.
 
+JPEG files are read as cv2 reads them: baseline, extended sequential and
+progressive, Huffman or arithmetic coded (SOF0-2, SOF9-10), with 1, 3 or 4
+components, progressive files whose scans stop early block-smoothed as
+libjpeg-turbo does, and a scan whose data run out decoded as far as they
+go.  The files cv2 returns None for raise ``ValueError`` naming
+``UNSUPPORTED_JPEG_ITEM``: lossless and hierarchical coding, 12-bit
+samples, 2 components, a DNL-defined height, and bytes cut off before
+their EOI marker (``decode_jpeg``, as ``cv2.imdecode``; a file read from
+a path is read as ``cv2.imread`` reads it, through a fake EOI).
+
     img = read_png(path)            # as cv2.imread(path, -1), RGB order
     rgb = read_image(path)          # as cv2.imread(path), RGB, uint8,
                                     # EXIF orientation applied
@@ -36,9 +46,12 @@ from bnv_fusion_tpu_torch.native import load_library
 
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
 JPEG_SOI = b"\xff\xd8"
-# ROADMAP item that would add the JPEG coding modes the decoder refuses
+# ROADMAP item that lists the JPEG files the decoder refuses, as cv2 does
 UNSUPPORTED_JPEG_ITEM = "ROADMAP Queue 1 item 16"
 ORIENTATION_TAG = 0x0112
+# libjpeg's fake EOIs past the end of a file: enough to fill the longest
+# marker segment a file can be cut inside
+_FAKE_EOIS = b"\xff\xd9" * 32768
 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
@@ -245,9 +258,10 @@ def decode_png(data: bytes, unchanged: bool = True) -> np.ndarray:
 
     ``unchanged=True`` is ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: grey
     [H, W] at 8 or 16 bits (1, 2 and 4 bits scale to 8), colour [H, W, 3]
-    or, with an alpha channel or palette transparency, [H, W, 4], as
-    stored.  ``unchanged=False`` is ``cv2.imread(path)``: uint8 [H, W, 3],
-    16 bits reduced to their high byte, grey replicated, alpha dropped, the
+    or, with an alpha channel, palette transparency or a truecolour
+    ``tRNS`` colour key (alpha 0 on the key, full elsewhere), [H, W, 4].
+    ``unchanged=False`` is ``cv2.imread(path)``: uint8 [H, W, 3], 16 bits
+    reduced to their high byte, grey replicated, alpha dropped, the
     orientation of an ``eXIf`` chunk applied."""
     chunks = list(_png_chunks(data))
     img = _decode_png(chunks, unchanged)
@@ -315,6 +329,16 @@ def _decode_png(chunks, unchanged: bool) -> np.ndarray:
     if depth < 8 and ctype == 0:
         img = (img.astype(np.uint16) * (255 // ((1 << depth) - 1))
                ).astype(np.uint8)
+    if ctype == 2 and unchanged and trns is not None and len(trns) == 6:
+        # libpng's png_do_expand: the colour key becomes an alpha channel,
+        # 0 where all three samples equal it, full elsewhere; at 8 bits
+        # only the key's low bytes count (a tRNS of another length is
+        # ignored, with a warning)
+        key = np.array(struct.unpack(">HHH", trns))
+        if depth == 8:
+            key &= 0xFF
+        alpha = np.where((img == key).all(-1), 0, np.iinfo(img.dtype).max)
+        return np.concatenate([img, alpha[..., None].astype(img.dtype)], -1)
     if not unchanged:
         if depth == 16:
             img = (img >> 8).astype(np.uint8)
@@ -383,13 +407,16 @@ def _jpeg_error(lib, code: int) -> ValueError:
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> uint8 [H, W, 3] RGB, grey replicated, its EXIF
-    orientation applied: cv2.imread's IMREAD_COLOR result with the channels
-    reversed.  Reads baseline, extended sequential and progressive Huffman
-    files with 1, 3 (YCbCr or RGB) or 4 (CMYK or YCCK) components, any
-    integer chroma sampling and restart markers.  Arithmetic-coded,
-    lossless, hierarchical and 12-bit files, 2 components, a DNL-defined
-    height and progressive scans that leave coefficient bits unknown raise
-    ``ValueError`` naming the ROADMAP item that would add them."""
+    orientation applied: ``cv2.imdecode(data, IMREAD_COLOR)`` with the
+    channels reversed (``read_jpeg`` reads a file as ``cv2.imread`` does,
+    which differs only for a file cut off before its EOI).  Reads baseline, extended sequential and progressive files,
+    Huffman or arithmetic coded, with 1, 3 (YCbCr or RGB) or 4 (CMYK or
+    YCCK) components, any integer chroma sampling and restart markers; a
+    progressive file whose scans leave low-frequency bits unknown is
+    block-smoothed as libjpeg-turbo smooths it.  Where cv2 returns None
+    (lossless, hierarchical and 12-bit files, 2 components, a DNL-defined
+    height, bytes cut off before their EOI) it raises ``ValueError`` naming
+    ``UNSUPPORTED_JPEG_ITEM``."""
     lib = _lib()
     buf = np.frombuffer(data, np.uint8)
     info = (ctypes.c_int32 * 3)()
@@ -404,8 +431,16 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return apply_orientation(out, jpeg_orientation(data))
 
 
+def _read_jpeg_file(data: bytes) -> np.ndarray:
+    """A JPEG file's bytes as ``cv2.imread`` decodes them: past the end of a
+    file libjpeg's file source (jdatasrc.c fill_input_buffer) hands out a
+    fake EOI marker on every read, so a file cut off before its EOI decodes
+    as far as its data go, as a scan cut short decodes."""
+    return decode_jpeg(data + _FAKE_EOIS)
+
+
 def read_jpeg(path: str) -> np.ndarray:
-    return decode_jpeg(_read_bytes(path))
+    return _read_jpeg_file(_read_bytes(path))
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
@@ -446,7 +481,7 @@ def read_image(path: str) -> np.ndarray:
     if data[:8] == PNG_SIG:
         return decode_png(data, unchanged=False)
     if data[:2] == JPEG_SOI:
-        return decode_jpeg(data)
+        return _read_jpeg_file(data)
     raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 

@@ -99,20 +99,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      Last, the colour modes (image_modes_step): every committed fixture of
      tests/data/torch_image_modes decoded on the card's host to the
      digests in its digests.json (the port's decodes on the CPU), each
-     progressive file equal to its baseline twin; run_inference scene3d
-     --mode e2e with model.fuse_color and the fused decode on the e2e
-     phase's frames, their img_paths pointing at the four 240x320 fixture
-     frames in turn (progressive, EXIF orientation 6 stored 320x240, CMYK,
-     baseline: decoded, oriented and area-enlarged onto the 480x640
-     depth), and again at PNGs of the port's decodes of the same files:
+     progressive and arithmetic-coded (SOF9, SOF10) file equal to its
+     Huffman baseline twin; run_inference scene3d --mode e2e with
+     model.fuse_color and the fused decode on the e2e phase's frames,
+     their img_paths pointing at the six 240x320 fixture frames in turn
+     (progressive, EXIF orientation 6 stored 320x240, CMYK, baseline,
+     arithmetic-coded progressive, and progressive cut to 4 of its 10
+     scans, block-smoothed: decoded, oriented and area-enlarged onto the
+     480x640 depth), and again at PNGs of the port's decodes of the same
+     files:
      table keys, features, weights and hits equal bit for bit, the colour
      prior too, seg_reduce_sorted and fused_corner_decode launched in each
      (counts zeroed just before, read just after).  Cut to the first
      MODES_FRAMES = 16 frames (one K=16 batch) and MODES_STEPS = 4 optimize
      steps.  One line each with the card's name and power limit: the
-     progressive and baseline decode ms per 240x320 frame, the EXIF
-     orientation ms and the 240x320 -> 480x640 area-enlarge ms (host
-     times);
+     progressive and baseline decode ms per 240x320 frame, the SOF9 and
+     SOF10 decode ms, the block-smoothed decode ms beside its complete
+     file's, the EXIF orientation ms and the 240x320 -> 480x640
+     area-enlarge ms (host times);
   9. fuse: local fusion at bench.py's operating point (phase_fuse):
      throughput through integrate_batches, best of 3 passes, and its table
      equal to sequential integrate_batch calls' bit for bit; auto
@@ -1213,10 +1217,10 @@ def phase_datasets(tmp, params, e2e_final_path, card):
 # the datasets phase's colour-modes step: the committed fixtures and the
 # digests of the port's decodes of them (tests/test_torch_image_modes.py
 # make_fixtures), and run_inference --mode e2e cut to one K=16 batch and a
-# few optimize steps, with the four 240x320 fixture frames as its colour
+# few optimize steps, with the six 240x320 fixture frames as its colour
 MODES_DIR = os.path.join(HERE, "tests", "data", "torch_image_modes")
 MODES_FRAME_FILES = ("frame_prog.jpg", "frame_o6.jpg", "frame_cmyk.jpg",
-                     "frame_base.jpg")
+                     "frame_base.jpg", "frame_sof10.jpg", "frame_smooth.jpg")
 MODES_FRAMES = 16
 MODES_STEPS = 4
 
@@ -1265,11 +1269,19 @@ def image_modes_step(tmp, weights, e2e_extra, synth_frames, dims, card):
     for prog, base in want["twins"].items():
         if not np.array_equal(decoded[prog], decoded[base]):
             bad.append(f"{prog} != {base}")
+    arith = [n for n in want["twins"] if "sof9" in n or "sof10" in n]
+    for name in arith:
+        sof = b"\xff\xc9" if "sof9" in name else b"\xff\xca"
+        with open(os.path.join(MODES_DIR, name), "rb") as f:
+            if sof not in f.read():
+                bad.append(f"{name} is not arithmetic-coded")
+    if len(arith) != 14:
+        bad.append(f"{len(arith)} arithmetic-coded twins, not 14")
     if bad:
         raise AssertionError(f"colour fixtures: {bad}")
     step(f"colour modes: {len(decoded)} fixtures decoded to their digests, "
-         f"{len(want['twins'])} progressive files equal to their baseline "
-         f"twins", t0)
+         f"{len(want['twins'])} progressive or arithmetic-coded files "
+         f"({len(arith)} SOF9/SOF10) equal to their baseline twins", t0)
 
     # the same capture twice: colour from the fixture files, then from
     # PNGs of the port's decodes of them (read_image sniffs the content)
@@ -1279,14 +1291,16 @@ def image_modes_step(tmp, weights, e2e_extra, synth_frames, dims, card):
     for kind in ("fixtures", "png"):
         canon = os.path.join(tmp, kind)
         gen.write_canonical(os.path.join(canon, "scene"), [
-            (os.path.join(MODES_DIR, MODES_FRAME_FILES[i % 4]),
+            (os.path.join(MODES_DIR,
+                          MODES_FRAME_FILES[i % len(MODES_FRAME_FILES)]),
              f["depth_raw"], f["T_wc"], f["intr_mat"])
             for i, f in enumerate(frames)], dims)
         if kind == "png":
             for i in range(len(frames)):
                 image_io.write_png(os.path.join(canon, "scene", "image",
                                                 f"{i}.jpg"),
-                                   decoded[MODES_FRAME_FILES[i % 4]])
+                                   decoded[MODES_FRAME_FILES[
+                                       i % len(MODES_FRAME_FILES)]])
         results, undo = recording(run_e2e)
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
@@ -1335,10 +1349,13 @@ def image_modes_step(tmp, weights, e2e_extra, synth_frames, dims, card):
     # host timings at the 240x320 frames
     data_o6 = open(os.path.join(MODES_DIR, "frame_o6.jpg"), "rb").read()
     img_o6 = decoded["frame_o6.jpg"]
-    t_prog = host_ms(lambda: image_io.read_image(
-        os.path.join(MODES_DIR, "frame_prog.jpg")))
-    t_base = host_ms(lambda: image_io.read_image(
-        os.path.join(MODES_DIR, "frame_base.jpg")))
+    def t_read(name):
+        return host_ms(lambda: image_io.read_image(
+            os.path.join(MODES_DIR, name)))
+
+    t_prog, t_base = t_read("frame_prog.jpg"), t_read("frame_base.jpg")
+    t_sof9, t_sof10 = t_read("frame_sof9.jpg"), t_read("frame_sof10.jpg")
+    t_smooth = t_read("frame_smooth.jpg")
     t_orient = host_ms(lambda: image_io.apply_orientation(
         img_o6, image_io.jpeg_orientation(data_o6)))
     t_grow = host_ms(lambda: image_io.resize_area(
@@ -1346,6 +1363,13 @@ def image_modes_step(tmp, weights, e2e_extra, synth_frames, dims, card):
     print(f"  {card}: host decode (median of {CODEC_REPS}) of a 240x320 "
           f"JPEG: progressive {t_prog:.3f} ms/frame, its baseline twin "
           f"{t_base:.3f} ms/frame", flush=True)
+    print(f"  {card}: host decode (median of {CODEC_REPS}) of a 240x320 "
+          f"arithmetic-coded JPEG: SOF9 {t_sof9:.3f} ms/frame, SOF10 "
+          f"{t_sof10:.3f} ms/frame", flush=True)
+    print(f"  {card}: host decode (median of {CODEC_REPS}) of a 240x320 "
+          f"progressive JPEG cut to 4 of its 10 scans, block-smoothed: "
+          f"{t_smooth:.3f} ms/frame (the complete file {t_prog:.3f})",
+          flush=True)
     print(f"  {card}: host EXIF orientation (parse + orientation 6) of a "
           f"240x320 decode: {t_orient:.3f} ms", flush=True)
     print(f"  {card}: host area enlarge 240x320 -> {depth_hw[0]}x"

@@ -259,17 +259,23 @@ def test_read_jpeg_against_cv2(tmp_path, name, hw, params):
 
 def test_read_jpeg_refuses_progressive(tmp_path):
     """A progressive file whose last scan is missing leaves coefficient bits
-    unknown; libjpeg block-smooths such a file, the port refuses it (the
-    complete files are read: tests/test_torch_image_modes.py)."""
+    unknown; libjpeg block-smooths it, and so does the port, bit for bit
+    (tests/test_torch_image_arith.py holds every cut).  One cut inside a
+    scan, with no EOI, is refused, as cv2.imdecode refuses it (a file
+    read from a path is read as cv2.imread reads it, through libjpeg's fake
+    EOI: tests/test_torch_image_arith.py)."""
     path = str(tmp_path / "p.jpg")
     cv2.imwrite(path, natural(40, 56), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     data = open(path, "rb").read()
     image_io.read_jpeg(path)
     with open(path, "wb") as f:
         f.write(data[:data.rfind(b"\xff\xda")] + b"\xff\xd9")
-    with pytest.raises(ValueError, match=r"progressive.*ROADMAP Queue 1 "
-                                         r"item 16"):
-        image_io.read_jpeg(path)
+    np.testing.assert_array_equal(image_io.read_jpeg(path),
+                                  cv2.imread(path)[..., ::-1])
+    cut = data[:len(data) - 100]
+    assert cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match=r"no EOI.*ROADMAP Queue 1 item 16"):
+        image_io.decode_jpeg(cut)
     with pytest.raises(ValueError):
         image_io.decode_jpeg(b"\xff\xd8\xff\xd9")
 

@@ -1,14 +1,18 @@
 """The port's colour read against cv2's ``imread(IMREAD_COLOR)`` and
 ``resize(INTER_AREA)``, as the JAX package calls them: EXIF orientation,
 progressive and 4-component (CMYK, YCCK) JPEG, the area resize where an axis
-grows, the JPEG modes that stay refused, and the committed fixtures under
-tests/data/torch_image_modes/ (which the card's smoke run decodes too).
+grows, the JPEG files cv2 refuses (and the odd ones it reads), and the
+committed fixtures under tests/data/torch_image_modes/ (which the card's
+smoke run decodes too; tests/test_torch_image_arith.py holds the
+arithmetic-coded and partial progressive ones to cv2 bit for bit).
 
 Tolerances (fixed before measuring):
 - JPEG decoding: tests/test_torch_image_io.py's JPEG_MAX_ERR and
   JPEG_MEAN_ERR; the share of bit-identical values is printed.
-- A progressive file and its baseline twin (same quality and sampling, so
-  the same coefficients): exactly equal in the port.
+- A progressive or arithmetic-coded file and its baseline Huffman twin
+  (same quality and sampling, so the same coefficients): exactly equal in
+  the port.
+- The files cv2 reads among the odd ones: exactly equal to cv2.
 - EXIF orientation: the geometry exact; the pixels exact for PNG and at the
   JPEG tolerance for JPEG.  The unchanged read ignores the tag.
 - ``resize_area`` where an axis grows: exact against cv2.  cv2 takes its
@@ -18,8 +22,10 @@ Tolerances (fixed before measuring):
   build: the widths below leave tails of every length mod 16 and 32.
 - Committed fixtures: the port's decodes hash to digests.json.
 
-Regenerate the fixtures (needs cv2 and PIL) with
-``python tests/test_torch_image_modes.py``; the digests are the port's own.
+Regenerate the fixtures (needs cv2, PIL, gcc and the system libjpeg, whose
+writer makes the arithmetic-coded files and partial scan scripts) with
+``PYTHONPATH=. python tests/test_torch_image_modes.py``; the digests are the
+port's own.
 """
 
 import hashlib
@@ -27,6 +33,8 @@ import io
 import json
 import os
 import struct
+import subprocess
+import tempfile
 import zlib
 
 import cv2
@@ -131,6 +139,91 @@ def pil_bytes(img, mode, fmt, **kw):
     buf = io.BytesIO()
     Image.fromarray(img, mode).save(buf, fmt, **kw)
     return buf.getvalue()
+
+
+# The system libjpeg's writer, for the files cv2 cannot write: arithmetic
+# coding with chosen DAC conditioning, and progressive files whose scan
+# script stops early.  Only make_fixtures compiles it (gcc ... -ljpeg).
+#   writer in.raw out.jpg W H C quality h v arith progressive restart L U K
+#          nscans
+LIBJPEG_WRITER_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <jpeglib.h>
+
+int main(int argc, char **argv) {
+  int a[16];
+  if (argc != 16) return 2;
+  for (int i = 3; i < 16; i++) a[i] = atoi(argv[i]);
+  size_t n = (size_t)a[3] * a[4] * a[5];
+  unsigned char *px = malloc(n);
+  FILE *in = fopen(argv[1], "rb"), *out = fopen(argv[2], "wb");
+  if (!in || !out || fread(px, 1, n, in) != n) return 1;
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr err;
+  c.err = jpeg_std_error(&err);
+  jpeg_create_compress(&c);
+  jpeg_stdio_dest(&c, out);
+  c.image_width = a[3];
+  c.image_height = a[4];
+  c.input_components = a[5];
+  c.in_color_space = a[5] == 3 ? JCS_RGB : JCS_GRAYSCALE;
+  jpeg_set_defaults(&c);
+  jpeg_set_quality(&c, a[6], TRUE);
+  c.comp_info[0].h_samp_factor = a[7];
+  c.comp_info[0].v_samp_factor = a[8];
+  c.arith_code = a[9];
+  c.optimize_coding = FALSE;
+  c.restart_interval = a[11];
+  for (int t = 0; t < NUM_ARITH_TBLS; t++) {
+    c.arith_dc_L[t] = a[12];
+    c.arith_dc_U[t] = a[13];
+    c.arith_ac_K[t] = a[14];
+  }
+  if (a[10]) {
+    jpeg_simple_progression(&c);
+    if (a[15] > 0 && a[15] < c.num_scans) c.num_scans = a[15];
+  }
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = px + (size_t)c.next_scanline * a[3] * a[5];
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  return fclose(out) != 0;
+}
+"""
+
+
+def libjpeg_writer(work_dir):
+    """Compile LIBJPEG_WRITER_C into work_dir; returns the executable."""
+    src, exe = os.path.join(work_dir, "writer.c"), os.path.join(work_dir,
+                                                                "writer")
+    with open(src, "w") as f:
+        f.write(LIBJPEG_WRITER_C)
+    subprocess.run(["gcc", "-O2", src, "-o", exe, "-ljpeg"], check=True)
+    return exe
+
+
+def libjpeg_jpeg(writer, img, quality=85, sampling=(2, 2), arith=False,
+                 progressive=False, restart=0, dac=(0, 1, 5), scans=0):
+    """A JPEG written by the system libjpeg (Huffman tables not optimized,
+    so a Huffman and an arithmetic file share their coefficients): RGB or
+    grey ``img``, luma ``sampling`` (h, v), ``restart`` MCUs per interval,
+    ``dac`` = (L, U, Kx) for every table, jpeg_simple_progression's script
+    cut to its first ``scans`` scans (0 = all)."""
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else 3
+    with tempfile.TemporaryDirectory() as d:
+        raw, out = os.path.join(d, "in.raw"), os.path.join(d, "out.jpg")
+        with open(raw, "wb") as f:
+            f.write(np.ascontiguousarray(img, np.uint8).tobytes())
+        hv = (1, 1) if c == 1 else sampling
+        subprocess.run([writer, raw, out] + [str(int(v)) for v in (
+            w, h, c, quality, hv[0], hv[1], arith, progressive, restart,
+            *dac, scans)], check=True)
+        with open(out, "rb") as f:
+            return f.read()
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +467,7 @@ def test_resize_area_grow_vector_tails(width):
 
 
 # ---------------------------------------------------------------------------
-# the modes that stay refused
+# the files cv2 refuses, and the odd ones it reads
 # ---------------------------------------------------------------------------
 
 DC_BITS = [0, 0, 0, 0, 16] + [0] * 11        # DC sizes 0-15, 5-bit codes
@@ -469,18 +562,35 @@ def _refused_fixture(mode):
     if mode == "dnl_height":
         body = base[:sof + 5] + b"\0\0" + base[sof + 7:-2]
         return body + b"\xff\xdc\x00\x04" + struct.pack(">H", 40) + b"\xff\xd9"
+    if mode == "arithmetic_restart":         # and restart markers
+        rst = cv2_jpeg(img, restart=2)
+        i = rst.find(b"\xff\xc0")
+        return rst[:i + 1] + b"\xc9" + rst[i + 2:]
+    if mode.startswith("sof"):               # arithmetic lossless (SOF11),
+        return base[:sof + 1] + bytes([int(mode[3:], 16)]) + base[sof + 2:]
     if mode == "progressive_cut":            # its last scan dropped
         return prog[:prog.rfind(b"\xff\xda")] + b"\xff\xd9"
+    if mode.endswith("mid_scan"):            # cut inside its last scan
+        if mode.startswith("arithmetic"):
+            with open(os.path.join(FIXTURE_DIR, "sof10_420.jpg"), "rb") as f:
+                prog = f.read()
+        last = prog.rfind(b"\xff\xda")
+        return prog[:(last + len(prog)) // 2]
     raise KeyError(mode)
 
 
-# what cv2.imread(IMREAD_COLOR) does with each file: True = returns an
-# image (the port refuses it all the same), False = returns None (the port's
-# ValueError is the JAX package's outcome: the readers fail on None)
+# what cv2 (imdecode, IMREAD_COLOR) does with each file: True = returns an
+# image, which the port returns bit for bit; False = returns None (the
+# port's ValueError is the JAX package's outcome: the readers fail on None).
+# cv2.imread of the file on disk differs for the two cut mid-scan only:
+# libjpeg's file source ends them with a fake EOI, as the port's path
+# readers do (tests/test_torch_image_arith.py).
 CV2_READS = {
-    "arithmetic_sequential": True,      # its libjpeg has the arithmetic
-                                        # decoder (the pixels are garbage)
-    "arithmetic_progressive": True,
+    "arithmetic_sequential": True,      # Huffman data read as arithmetic
+                                        # codes: garbage up to the first
+                                        # impossible code, then zero blocks
+    "arithmetic_progressive": True,     # ... the coefficients it reached
+    "arithmetic_restart": True,         # ... until each restart marker
     "hierarchical_5": False,
     "hierarchical_6": False,
     "hierarchical_7": False,
@@ -488,14 +598,27 @@ CV2_READS = {
     "12_bit": False,
     "2_components": False,
     "dnl_height": False,
-    "progressive_cut": True,            # libjpeg block-smooths it
+    "progressive_cut": True,            # block-smoothed
+    "sofcb": False,                     # lossless, arithmetic coding
+    "sofcd": False,                     # hierarchical, arithmetic coding
+    "sofce": False,
+    "sofcf": False,
+    "progressive_mid_scan": False,      # no EOI: libjpeg's input ends
+    "arithmetic_mid_scan": False,
 }
 
 
 @pytest.mark.parametrize("mode", list(CV2_READS))
 def test_refused_modes(mode):
+    """The files cv2 returns None for are refused, naming the ROADMAP item;
+    the ones it reads (the first three relabelled to arithmetic coding,
+    a progressive file missing its last scan) are read as it reads them."""
     data = _refused_fixture(mode)
-    assert (cv2_rgb(data) is not None) == CV2_READS[mode]
+    want = cv2_rgb(data)
+    assert (want is not None) == CV2_READS[mode]
+    if want is not None:
+        np.testing.assert_array_equal(image_io.decode_jpeg(data), want)
+        return
     with pytest.raises(ValueError, match=ITEM):
         image_io.decode_jpeg(data)
 
@@ -519,11 +642,31 @@ def test_hand_built_files_are_valid():
 # the committed fixtures
 # ---------------------------------------------------------------------------
 
+# the system libjpeg's arithmetic-coded files at 53x37: luma sampling (h,
+# v) (None: grey), restart interval in MCUs, DAC (L, U, Kx) of every table
+ARITH_CASES = {"420": ((2, 2), 0, (0, 1, 5)), "422": ((2, 1), 0, (0, 1, 5)),
+               "444": ((1, 1), 0, (0, 1, 5)), "grey": (None, 0, (0, 1, 5)),
+               "rst": ((2, 2), 2, (0, 1, 5)), "dac": ((2, 2), 0, (2, 6, 24))}
+# its progressive files with jpeg_simple_progression's script cut short:
+# name -> (arithmetic coding, scans kept)
+PARTIAL_SCRIPTS = {"part2_sof2.jpg": (False, 2), "part6_sof10.jpg": (True, 6)}
+FRAME_SMOOTH_SCANS = 4       # frame_smooth.jpg: DC, Y AC 1-5, Cr and Cb AC
+
 TWINS = {f"prog_{k}.jpg": f"base_{k}.jpg"
          for k in ("420", "422", "444", "grey", "rst")}
 TWINS["frame_prog.jpg"] = "frame_base.jpg"
+for _k in ARITH_CASES:       # SOF9 and SOF10 against their Huffman twin
+    TWINS[f"sof9_{_k}.jpg"] = TWINS[f"sof10_{_k}.jpg"] = f"huff_{_k}.jpg"
+TWINS["frame_sof9.jpg"] = TWINS["frame_sof10.jpg"] = "frame_base.jpg"
 FRAMES = ("frame_prog.jpg", "frame_o6.jpg", "frame_cmyk.jpg",
-          "frame_base.jpg")
+          "frame_base.jpg", "frame_sof9.jpg", "frame_sof10.jpg",
+          "frame_smooth.jpg")
+# the files only the system libjpeg writes: arithmetic coding and partial
+# scan scripts (bit-identical to cv2 in tests/test_torch_image_arith.py)
+LIBJPEG_FILES = sorted([f"{kind}_{k}.jpg" for kind in ("sof9", "sof10", "huff")
+                        for k in ARITH_CASES] + list(PARTIAL_SCRIPTS) +
+                       ["frame_sof9.jpg", "frame_sof10.jpg",
+                        "frame_smooth.jpg"])
 
 
 def make_fixtures(out_dir=FIXTURE_DIR):
@@ -560,6 +703,24 @@ def make_fixtures(out_dir=FIXTURE_DIR):
         b"Exif\0\0" + exif_block(6))          # stored 320x240
     files["frame_cmyk.jpg"] = pil_bytes(cmyk_of(frame), "CMYK", "JPEG",
                                         quality=85)
+    with tempfile.TemporaryDirectory() as work:
+        writer = libjpeg_writer(work)
+        arith_img = scene(37, 53, seed=7, noise=6.0)
+        for k, (hv, rst, dac) in ARITH_CASES.items():
+            img = arith_img[..., 1] if hv is None else arith_img
+            kw = dict(sampling=hv or (1, 1), restart=rst, dac=dac)
+            files[f"sof9_{k}.jpg"] = libjpeg_jpeg(writer, img, arith=True, **kw)
+            files[f"sof10_{k}.jpg"] = libjpeg_jpeg(writer, img, arith=True,
+                                                   progressive=True, **kw)
+            files[f"huff_{k}.jpg"] = libjpeg_jpeg(writer, img, **kw)
+        for name, (arith, scans) in PARTIAL_SCRIPTS.items():
+            files[name] = libjpeg_jpeg(writer, arith_img, arith=arith,
+                                       progressive=True, scans=scans)
+        files["frame_sof9.jpg"] = libjpeg_jpeg(writer, frame, arith=True)
+        files["frame_sof10.jpg"] = libjpeg_jpeg(writer, frame, arith=True,
+                                                progressive=True)
+        files["frame_smooth.jpg"] = libjpeg_jpeg(
+            writer, frame, progressive=True, scans=FRAME_SMOOTH_SCANS)
     assert sorted(files) == FIXTURES
     for name, data in files.items():
         with open(os.path.join(out_dir, name), "wb") as f:
@@ -586,10 +747,10 @@ def port_digests(out_dir, names):
             f"read_color_{DEPTH_HW[0]}x{DEPTH_HW[1]}": area}
 
 
-FIXTURES = sorted(list(TWINS) + list(TWINS.values()) +
-                  ["cmyk.jpg", "ycck.jpg", "exif_o6.png", "frame_o6.jpg",
-                   "frame_cmyk.jpg"] +
-                  [f"exif_o{o}.jpg" for o in range(2, 9)])
+FIXTURES = sorted(set(TWINS) | set(TWINS.values()) | set(LIBJPEG_FILES) |
+                  {"cmyk.jpg", "ycck.jpg", "exif_o6.png", "frame_o6.jpg",
+                   "frame_cmyk.jpg"} |
+                  {f"exif_o{o}.jpg" for o in range(2, 9)})
 
 
 def test_fixture_set_is_small():
@@ -634,8 +795,8 @@ def test_committed_fixture(name):
 
 @pytest.fixture(scope="module")
 def capture(tmp_path_factory):
-    """A canonical capture whose colour files are the four 240x320 frames
-    and a PNG stored 320x240 with EXIF orientation 6, over 480x640 depth."""
+    """A canonical capture whose colour files are the 240x320 frames and a
+    PNG stored 320x240 with EXIF orientation 6, over 480x640 depth."""
     root = tmp_path_factory.mktemp("modes") / "scene"
     for sub in ("image", "depth", "pose"):
         (root / sub).mkdir(parents=True)
@@ -670,12 +831,12 @@ def test_canonical_reader_colour_jax_vs_port(capture):
             "dataset.load_color=true"]
     t = tget_dataset(tload_config(over), "val")
     j = jget_dataset(jload_config(over), "val")
-    assert len(t) == len(j) == 5
-    for i in range(5):
+    assert len(t) == len(j) == len(FRAMES) + 1
+    for i in range(len(FRAMES) + 1):
         a, b = t[i]["rgb"], j[i]["rgb"]
         assert a.dtype == b.dtype == np.float32
         assert a.shape == b.shape == DEPTH_HW + (3,)
-        if i == 4:                          # the PNG: exact
+        if i == len(FRAMES):                # the PNG: exact
             np.testing.assert_array_equal(a, b)
         else:
             within_jpeg_tol(f"reader frame {i}", a.astype(np.uint8),
@@ -686,13 +847,13 @@ def test_frame_rgb_jax_vs_port(capture):
     from bnv_fusion_tpu.pipeline import NeuralMap as JaxMap
     from bnv_fusion_tpu_torch.pipeline import NeuralMap
 
-    for i in range(5):
+    for i in range(len(FRAMES) + 1):
         frame = {"img_path": str(capture / "image" / f"{i}.jpg"),
                  "depth": np.zeros(DEPTH_HW, np.float32)}
         a, b = NeuralMap._frame_rgb(frame), JaxMap._frame_rgb(None, frame)
         assert a.dtype == np.uint8 and b.dtype == np.float32
         assert a.shape == b.shape == DEPTH_HW + (3,)
-        if i == 4:
+        if i == len(FRAMES):
             np.testing.assert_array_equal(a, b)
         else:
             within_jpeg_tol(f"_frame_rgb {i}", a, b.astype(np.uint8))
