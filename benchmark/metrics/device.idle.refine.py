@@ -1,0 +1,10 @@
+"""device.idle.refine: the share of the traced unit's window in which no
+kernel, copy or set ran on the card (1 - union of device intervals /
+window), in %."""
+
+
+def read(ctx):
+    t = ctx.timeline
+    if t is None or t.busy_s <= 0 or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
