@@ -1,0 +1,4 @@
+"""fuse.front.ms_per_frame.k1: fuse.front.ms_per_frame on the per-frame
+path."""
+
+from benchmark.metrics._fuse_spans import front_ms as read  # noqa: F401

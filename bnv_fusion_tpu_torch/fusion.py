@@ -29,6 +29,7 @@ from bnv_fusion_tpu_torch import voxel
 from bnv_fusion_tpu_torch.kernels import (fused_corner_decode,
                                           seg_reduce_sorted,
                                           seg_reduce_sorted_torch)
+from bnv_fusion_tpu_torch.utils import profiling
 
 
 class FrameStats(NamedTuple):
@@ -160,63 +161,73 @@ def _cellsort_reduce(params, pts_w, normals, valid, bound_min, bound_max,
     dev = pts_w.device
     u_cell = min(max_unique_cells if max_unique_cells else max_unique, n)
 
-    cell_s, mcode_s, coords_s, normals_s, n_inside = _cellsort_sort1(
-        pts_w, normals, valid, bound_min, bound_max, voxel_size, n_xyz, n_vox)
-    entry_valid = cell_s < n_vox
+    with profiling.span("fuse.sort1"):
+        cell_s, mcode_s, coords_s, normals_s, n_inside = _cellsort_sort1(
+            pts_w, normals, valid, bound_min, bound_max, voxel_size, n_xyz,
+            n_vox)
+        entry_valid = cell_s < n_vox
 
-    corners_s = voxel.corner_neighbors(coords_s)
-    rel = voxel.local_offsets(coords_s, corners_s)
-    pn_in = torch.cat([rel, normals_s[:, None, :].expand_as(rel)], dim=-1)
-    feats = bnn.encoder_apply(params, pn_in, compute_dtype)      # [N, 8, F]
-    f8 = torch.where(entry_valid[:, None, None], feats,
-                     torch.zeros((), device=dev)).reshape(n, 8 * fdim)
+    with profiling.span("fuse.encode"):
+        corners_s = voxel.corner_neighbors(coords_s)
+        rel = voxel.local_offsets(coords_s, corners_s)
+        pn_in = torch.cat([rel, normals_s[:, None, :].expand_as(rel)], dim=-1)
+        feats = bnn.encoder_apply(params, pn_in, compute_dtype)  # [N, 8, F]
+        f8 = torch.where(entry_valid[:, None, None], feats,
+                         torch.zeros((), device=dev)).reshape(n, 8 * fdim)
 
-    boundary = (cell_s != _prepend(cell_s, -1)) | \
-        (mcode_s != _prepend(mcode_s, -1))
-    ch_mean = torch.mean(f8, dim=0, keepdim=True)
-    cum = _cumsum_rows(f8 - ch_mean)
-    is_end = _append(boundary, True) & entry_valid
-    n_groups = is_end.sum().to(torch.int32)
+    with profiling.span("fuse.reduce1"):
+        boundary = (cell_s != _prepend(cell_s, -1)) | \
+            (mcode_s != _prepend(mcode_s, -1))
+        ch_mean = torch.mean(f8, dim=0, keepdim=True)
+        cum = _cumsum_rows(f8 - ch_mean)
+        is_end = _append(boundary, True) & entry_valid
+        n_groups = is_end.sum().to(torch.int32)
 
-    end_pos = torch.clamp(_compact_ends(is_end, u_cell), max=n - 1)
-    gmask = torch.arange(u_cell, device=dev) < torch.clamp(n_groups, max=u_cell)
-    prev_end = _prepend(end_pos, -1)
-    cell_u = cell_s[end_pos]
-    mcode_u = mcode_s[end_pos]
-    gcnt = (end_pos - prev_end).to(torch.int32)
-    cum_lo = torch.where((prev_end >= 0)[:, None],
-                         cum[prev_end.clamp(min=0)], torch.zeros((), device=dev))
-    gsum = cum[end_pos] - cum_lo + ch_mean * gcnt.to(torch.float32)[:, None]
-    cells_dropped = torch.clamp(n_groups - u_cell, min=0)
+        end_pos = torch.clamp(_compact_ends(is_end, u_cell), max=n - 1)
+        gmask = torch.arange(u_cell, device=dev) < \
+            torch.clamp(n_groups, max=u_cell)
+        prev_end = _prepend(end_pos, -1)
+        cell_u = cell_s[end_pos]
+        mcode_u = mcode_s[end_pos]
+        gcnt = (end_pos - prev_end).to(torch.int32)
+        cum_lo = torch.where((prev_end >= 0)[:, None],
+                             cum[prev_end.clamp(min=0)],
+                             torch.zeros((), device=dev))
+        gsum = cum[end_pos] - cum_lo + \
+            ch_mean * gcnt.to(torch.float32)[:, None]
+        cells_dropped = torch.clamp(n_groups - u_cell, min=0)
 
     # ---- stage 2: merge per-cell partials into corner voxel totals ----
-    m2 = u_cell * 8
-    ck = _corner_keys(cell_u, mcode_u, gmask, n_xyz, n_vox).reshape(m2)
-    f2 = torch.where(gmask[:, None, None], gsum.reshape(u_cell, 8, fdim),
-                     torch.zeros((), device=dev)).reshape(m2, fdim)
-    c2 = torch.where(gmask[:, None], gcnt[:, None].expand(u_cell, 8),
-                     0).reshape(m2)
-    order = torch.argsort(ck, stable=True)
-    ck_s, f2_s, c2_s = ck[order], f2[order], c2[order]
+    with profiling.span("fuse.corners"):
+        m2 = u_cell * 8
+        ck = _corner_keys(cell_u, mcode_u, gmask, n_xyz, n_vox).reshape(m2)
+        f2 = torch.where(gmask[:, None, None], gsum.reshape(u_cell, 8, fdim),
+                         torch.zeros((), device=dev)).reshape(m2, fdim)
+        c2 = torch.where(gmask[:, None], gcnt[:, None].expand(u_cell, 8),
+                         0).reshape(m2)
+    with profiling.span("fuse.sort2"):
+        order = torch.argsort(ck, stable=True)
+        ck_s, f2_s, c2_s = ck[order], f2[order], c2[order]
 
-    ev2 = ck_s < n_vox
-    mean2 = torch.mean(f2_s, dim=0, keepdim=True)
-    cum2 = _cumsum_rows(f2_s - mean2)
-    ccum2 = torch.cumsum(c2_s, dim=0)                            # exact ints
-    is_end2 = _append(ck_s != _prepend(ck_s, -1), True) & ev2
-    n_unique = is_end2.sum().to(torch.int32)
+    with profiling.span("fuse.reduce2"):
+        ev2 = ck_s < n_vox
+        mean2 = torch.mean(f2_s, dim=0, keepdim=True)
+        cum2 = _cumsum_rows(f2_s - mean2)
+        ccum2 = torch.cumsum(c2_s, dim=0)                        # exact ints
+        is_end2 = _append(ck_s != _prepend(ck_s, -1), True) & ev2
+        n_unique = is_end2.sum().to(torch.int32)
 
-    u = min(max_unique, m2)
-    end2 = torch.clamp(_compact_ends(is_end2, u), max=m2 - 1)
-    umask = torch.arange(u, device=dev) < torch.clamp(n_unique, max=u)
-    pend2 = _prepend(end2, -1)
-    flat_u = ck_s[end2]
-    seg_n = (end2 - pend2).to(torch.float32)
-    clo = torch.where(pend2 >= 0, ccum2[pend2.clamp(min=0)], 0)
-    cnt_u = (ccum2[end2] - clo).to(torch.float32)
-    flo = torch.where((pend2 >= 0)[:, None], cum2[pend2.clamp(min=0)],
-                      torch.zeros((), device=dev))
-    sum_u = cum2[end2] - flo + mean2 * seg_n[:, None]
+        u = min(max_unique, m2)
+        end2 = torch.clamp(_compact_ends(is_end2, u), max=m2 - 1)
+        umask = torch.arange(u, device=dev) < torch.clamp(n_unique, max=u)
+        pend2 = _prepend(end2, -1)
+        flat_u = ck_s[end2]
+        seg_n = (end2 - pend2).to(torch.float32)
+        clo = torch.where(pend2 >= 0, ccum2[pend2.clamp(min=0)], 0)
+        cnt_u = (ccum2[end2] - clo).to(torch.float32)
+        flo = torch.where((pend2 >= 0)[:, None], cum2[pend2.clamp(min=0)],
+                          torch.zeros((), device=dev))
+        sum_u = cum2[end2] - flo + mean2 * seg_n[:, None]
     return (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped, n_inside)
 
 
@@ -225,32 +236,33 @@ def _integrate_unique(table, flat_u, cnt_u, sum_u, umask, n_unique, u: int,
     """Shared fuse tail, in place: insert deduplicated voxels + the
     reference's running-mean update (weight = clip(count/32, 1), voxels under
     min_pts dropped)."""
-    slots, ok = tbl.insert_unique_flat(
-        table, torch.where(umask, flat_u, -1), umask)
-    dropped = torch.clamp(n_unique - u, min=0)
+    with profiling.span("fuse.table"):
+        slots, ok = tbl.insert_unique_flat(
+            table, torch.where(umask, flat_u, -1), umask)
+        dropped = torch.clamp(n_unique - u, min=0)
 
-    mean_u = sum_u / torch.clamp(cnt_u, min=1.0)[:, None]
-    new_w = torch.clamp(cnt_u / 32.0, max=1.0)
-    keep = umask & ok & (cnt_u >= min_pts_in_grid)
-    zero = torch.zeros((), device=sum_u.device)
-    old_w = torch.where(keep, table.weights[slots], zero)
-    old_f = torch.where(keep[:, None], table.features[slots], zero)
-    upd_w = old_w + new_w
-    upd_f = (old_f * old_w[:, None] + mean_u * new_w[:, None]) / \
-        torch.clamp(upd_w, min=1e-12)[:, None]
-    old_h = torch.where(keep, table.num_hits[slots], zero)
+        mean_u = sum_u / torch.clamp(cnt_u, min=1.0)[:, None]
+        new_w = torch.clamp(cnt_u / 32.0, max=1.0)
+        keep = umask & ok & (cnt_u >= min_pts_in_grid)
+        zero = torch.zeros((), device=sum_u.device)
+        old_w = torch.where(keep, table.weights[slots], zero)
+        old_f = torch.where(keep[:, None], table.features[slots], zero)
+        upd_w = old_w + new_w
+        upd_f = (old_f * old_w[:, None] + mean_u * new_w[:, None]) / \
+            torch.clamp(upd_w, min=1e-12)[:, None]
+        old_h = torch.where(keep, table.num_hits[slots], zero)
 
-    ks = slots[keep]
-    table.features[ks] = upd_f[keep]
-    table.weights[ks] = upd_w[keep]
-    table.num_hits[ks] = old_h[keep] + 1.0
-    table.overflow = table.overflow + dropped + extra_overflow
+        ks = slots[keep]
+        table.features[ks] = upd_f[keep]
+        table.weights[ks] = upd_w[keep]
+        table.num_hits[ks] = old_h[keep] + 1.0
+        table.overflow = table.overflow + dropped + extra_overflow
 
-    nf = torch.clamp(n_unique.to(torch.float32), min=1.0)
-    return FrameStats(
-        n_avg_pts=torch.sum(torch.where(umask, cnt_u, zero)) / nf,
-        n_touched=n_unique.to(torch.float32),
-        n_valid_pts=torch.zeros((), device=sum_u.device))
+        nf = torch.clamp(n_unique.to(torch.float32), min=1.0)
+        return FrameStats(
+            n_avg_pts=torch.sum(torch.where(umask, cnt_u, zero)) / nf,
+            n_touched=n_unique.to(torch.float32),
+            n_valid_pts=torch.zeros((), device=sum_u.device))
 
 
 def fuse_frame_cellsort(table, params: Dict[str, Any], pts_w, normals, valid,
@@ -306,47 +318,58 @@ def _cellsort_reduce_batched(params, pts_w, normals, valid, bound_min,
     dev = pts_w.device
     u_cell = min(max_unique_cells if max_unique_cells else max_unique, n)
 
-    cell_s, mcode_s, coords_s, normals_s, n_valid = _cellsort_sort1(
-        pts_w, normals, valid, bound_min, bound_max, voxel_size, n_xyz, n_vox)
-    entry_valid = cell_s < n_vox                                 # [K, N]
+    with profiling.span("fuse.sort1"):
+        cell_s, mcode_s, coords_s, normals_s, n_valid = _cellsort_sort1(
+            pts_w, normals, valid, bound_min, bound_max, voxel_size, n_xyz,
+            n_vox)
+        entry_valid = cell_s < n_vox                             # [K, N]
     # encoder one frame at a time: its [8N, 64] activations dominate memory
-    f8fm = torch.empty((kf, 8 * fdim, n), dtype=torch.float32, device=dev)
-    for k in range(kf):
-        f8fm[k] = _encode_sorted_fm(params, coords_s[k], normals_s[k],
-                                    entry_valid[k], compute_dtype)
+    with profiling.span("fuse.encode"):
+        f8fm = torch.empty((kf, 8 * fdim, n), dtype=torch.float32, device=dev)
+        for k in range(kf):
+            f8fm[k] = _encode_sorted_fm(params, coords_s[k], normals_s[k],
+                                        entry_valid[k], compute_dtype)
 
-    cnts1 = entry_valid.to(torch.int32)[:, None, :].contiguous()
-    cell_u, mcode_u, gcnt_i, gsum, n_groups = seg(
-        cell_s.contiguous(), cnts1, f8fm, u=u_cell, sent=int(n_vox),
-        keys2=mcode_s.contiguous())
-    del f8fm
-    gmask = torch.arange(u_cell, device=dev)[None, :] < \
-        torch.clamp(n_groups, max=u_cell)[:, None]               # [K, u_cell]
-    gcnt = gcnt_i[..., 0]
-    cells_dropped = torch.clamp(n_groups - u_cell, min=0)
+    with profiling.span("fuse.reduce1"):
+        cnts1 = entry_valid.to(torch.int32)[:, None, :].contiguous()
+        cell_u, mcode_u, gcnt_i, gsum, n_groups = seg(
+            cell_s.contiguous(), cnts1, f8fm, u=u_cell, sent=int(n_vox),
+            keys2=mcode_s.contiguous())
+        del f8fm
+        gmask = torch.arange(u_cell, device=dev)[None, :] < \
+            torch.clamp(n_groups, max=u_cell)[:, None]           # [K, u_cell]
+        gcnt = gcnt_i[..., 0]
+        cells_dropped = torch.clamp(n_groups - u_cell, min=0)
 
     # ---- stage 2: scatter per-cell partials to the 8 corner voxel ids ----
-    m2 = u_cell * 8
-    ck = _corner_keys(cell_u, mcode_u, gmask, n_xyz, n_vox).reshape(kf, m2)
-    # gsum channels are (f*8 + p) -> per-feature [K, F, u_cell * 8] planes
-    g3 = torch.where(gmask[:, :, None, None], gsum.reshape(kf, u_cell, fdim, 8),
-                     torch.zeros((), device=dev))
-    fch = g3.permute(0, 2, 1, 3).reshape(kf, fdim, m2)
-    c2 = torch.where(gmask[:, :, None], gcnt[:, :, None].expand(kf, u_cell, 8),
-                     0).reshape(kf, m2)
-    if sort_bf16:
-        fch = fch.to(torch.bfloat16).to(torch.float32)
-    order = torch.argsort(ck, dim=-1, stable=True)
-    ck_s = torch.gather(ck, -1, order).contiguous()
-    f2_s = torch.gather(fch, -1, order[:, None, :].expand(kf, fdim, m2))
-    c2_s = torch.gather(c2, -1, order)[:, None, :].contiguous()
+    with profiling.span("fuse.corners"):
+        m2 = u_cell * 8
+        ck = _corner_keys(cell_u, mcode_u, gmask, n_xyz,
+                          n_vox).reshape(kf, m2)
+        # gsum channels are (f*8 + p) -> per-feature [K, F, u_cell * 8]
+        # planes
+        g3 = torch.where(gmask[:, :, None, None],
+                         gsum.reshape(kf, u_cell, fdim, 8),
+                         torch.zeros((), device=dev))
+        fch = g3.permute(0, 2, 1, 3).reshape(kf, fdim, m2)
+        c2 = torch.where(gmask[:, :, None],
+                         gcnt[:, :, None].expand(kf, u_cell, 8),
+                         0).reshape(kf, m2)
+        if sort_bf16:
+            fch = fch.to(torch.bfloat16).to(torch.float32)
+    with profiling.span("fuse.sort2"):
+        order = torch.argsort(ck, dim=-1, stable=True)
+        ck_s = torch.gather(ck, -1, order).contiguous()
+        f2_s = torch.gather(fch, -1, order[:, None, :].expand(kf, fdim, m2))
+        c2_s = torch.gather(c2, -1, order)[:, None, :].contiguous()
 
-    u = min(max_unique, m2)
-    flat_u, _, cnt_i, sum_u, n_unique = seg(
-        ck_s, c2_s, f2_s.contiguous(), u=u, sent=int(n_vox))
-    umask = torch.arange(u, device=dev)[None, :] < \
-        torch.clamp(n_unique, max=u)[:, None]
-    cnt_u = cnt_i[..., 0].to(torch.float32)
+    with profiling.span("fuse.reduce2"):
+        u = min(max_unique, m2)
+        flat_u, _, cnt_i, sum_u, n_unique = seg(
+            ck_s, c2_s, f2_s.contiguous(), u=u, sent=int(n_vox))
+        umask = torch.arange(u, device=dev)[None, :] < \
+            torch.clamp(n_unique, max=u)[:, None]
+        cnt_u = cnt_i[..., 0].to(torch.float32)
     return (flat_u, cnt_u, sum_u, umask, n_unique, u, cells_dropped, n_valid)
 
 
@@ -408,67 +431,72 @@ def fuse_frames_merged(table, params: Dict[str, Any], pts_w, normals, valid,
     del parts
 
     zero = torch.zeros((), device=dev)
-    mean_u = sum_u / torch.clamp(cnt_u, min=1.0)[..., None]
-    nw = torch.clamp(cnt_u / 32.0, max=1.0)
-    keep = umask & (cnt_u >= min_pts_in_grid)
+    with profiling.span("fuse.merge"):
+        mean_u = sum_u / torch.clamp(cnt_u, min=1.0)[..., None]
+        nw = torch.clamp(cnt_u / 32.0, max=1.0)
+        keep = umask & (cnt_u >= min_pts_in_grid)
 
-    m3 = kf * u
-    key = torch.where(umask, flat_u, n_vox).reshape(m3)
-    # nw = min(cnt/32, 1) is an integer number of 1/32 units: its sums ride
-    # integers exactly
-    nw32 = torch.where(keep, torch.clamp(cnt_u, max=32.0), zero) \
-        .to(torch.int64).reshape(m3)
-    h32 = keep.to(torch.int64).reshape(m3)
-    s_z = torch.where(keep[..., None], mean_u * nw[..., None],
-                      zero).reshape(m3, fdim)
+        m3 = kf * u
+        key = torch.where(umask, flat_u, n_vox).reshape(m3)
+        # nw = min(cnt/32, 1) is an integer number of 1/32 units: its sums
+        # ride integers exactly
+        nw32 = torch.where(keep, torch.clamp(cnt_u, max=32.0), zero) \
+            .to(torch.int64).reshape(m3)
+        h32 = keep.to(torch.int64).reshape(m3)
+        s_z = torch.where(keep[..., None], mean_u * nw[..., None],
+                          zero).reshape(m3, fdim)
 
-    order = torch.argsort(key, stable=True)
-    key_s, nw_s, h_s, s_s = key[order], nw32[order], h32[order], s_z[order]
-    ev = key_s < n_vox
-    wcum = torch.cumsum(nw_s, 0)
-    hcum = torch.cumsum(h_s, 0)
-    is_end = _append(key_s != _prepend(key_s, -1), True) & ev
-    n_uniq_b = is_end.sum()
+        order = torch.argsort(key, stable=True)
+        key_s, nw_s, h_s, s_s = key[order], nw32[order], h32[order], \
+            s_z[order]
+        ev = key_s < n_vox
+        wcum = torch.cumsum(nw_s, 0)
+        hcum = torch.cumsum(h_s, 0)
+        is_end = _append(key_s != _prepend(key_s, -1), True) & ev
+        n_uniq_b = is_end.sum()
 
-    ub = min(max_unique_batch if max_unique_batch else 2 * max_unique, m3)
-    end = torch.clamp(_compact_ends(is_end, ub), max=m3 - 1)
-    bmask = torch.arange(ub, device=dev) < torch.clamp(n_uniq_b, max=ub)
-    pend = _prepend(end, -1)
-    flat_b = key_s[end]
-    wlo = torch.where(pend >= 0, wcum[pend.clamp(min=0)], 0)
-    W = (wcum[end] - wlo).to(torch.float32) / 32.0
-    hlo = torch.where(pend >= 0, hcum[pend.clamp(min=0)], 0)
-    H = (hcum[end] - hlo).to(torch.float32)
-    # a voxel appears at most once per frame: every merge segment has <= K
-    # entries, summed by K shifted gathers in the JAX package's order
-    seg_len = end - pend
-    S = torch.zeros((ub, fdim), dtype=torch.float32, device=dev)
-    for i in range(kf):
-        take = torch.clamp(end - i, min=0)
-        S = S + torch.where((i < seg_len)[:, None], s_s[take], zero)
+        ub = min(max_unique_batch if max_unique_batch else 2 * max_unique, m3)
+        end = torch.clamp(_compact_ends(is_end, ub), max=m3 - 1)
+        bmask = torch.arange(ub, device=dev) < torch.clamp(n_uniq_b, max=ub)
+        pend = _prepend(end, -1)
+        flat_b = key_s[end]
+        wlo = torch.where(pend >= 0, wcum[pend.clamp(min=0)], 0)
+        W = (wcum[end] - wlo).to(torch.float32) / 32.0
+        hlo = torch.where(pend >= 0, hcum[pend.clamp(min=0)], 0)
+        H = (hcum[end] - hlo).to(torch.float32)
+        # a voxel appears at most once per frame: every merge segment has
+        # <= K entries, summed by K shifted gathers in the JAX package's
+        # order
+        seg_len = end - pend
+        S = torch.zeros((ub, fdim), dtype=torch.float32, device=dev)
+        for i in range(kf):
+            take = torch.clamp(end - i, min=0)
+            S = S + torch.where((i < seg_len)[:, None], s_s[take], zero)
 
-    slots, ok = tbl.insert_unique_flat(table, torch.where(bmask, flat_b, -1),
-                                       bmask)
-    dropped = torch.clamp(n_uniq_b - ub, min=0)
-    keep_b = bmask & ok & (W > 0)
-    old_w = torch.where(keep_b, table.weights[slots], zero)
-    old_f = torch.where(keep_b[:, None], table.features[slots], zero)
-    old_h = torch.where(keep_b, table.num_hits[slots], zero)
-    upd_w = old_w + W
-    upd_f = (old_f * old_w[:, None] + S) / torch.clamp(upd_w, min=1e-12)[:, None]
-    ks = slots[keep_b]
-    table.features[ks] = upd_f[keep_b]
-    table.weights[ks] = upd_w[keep_b]
-    table.num_hits[ks] = (old_h + H)[keep_b]
-    per_frame_dropped = torch.clamp(n_unique.long() - u, min=0).sum()
-    table.overflow = table.overflow + dropped + cells_dropped.long().sum() + \
-        per_frame_dropped
+    with profiling.span("fuse.table"):
+        slots, ok = tbl.insert_unique_flat(
+            table, torch.where(bmask, flat_b, -1), bmask)
+        dropped = torch.clamp(n_uniq_b - ub, min=0)
+        keep_b = bmask & ok & (W > 0)
+        old_w = torch.where(keep_b, table.weights[slots], zero)
+        old_f = torch.where(keep_b[:, None], table.features[slots], zero)
+        old_h = torch.where(keep_b, table.num_hits[slots], zero)
+        upd_w = old_w + W
+        upd_f = (old_f * old_w[:, None] + S) / \
+            torch.clamp(upd_w, min=1e-12)[:, None]
+        ks = slots[keep_b]
+        table.features[ks] = upd_f[keep_b]
+        table.weights[ks] = upd_w[keep_b]
+        table.num_hits[ks] = (old_h + H)[keep_b]
+        per_frame_dropped = torch.clamp(n_unique.long() - u, min=0).sum()
+        table.overflow = table.overflow + dropped + \
+            cells_dropped.long().sum() + per_frame_dropped
 
-    nf = torch.clamp(n_unique.to(torch.float32), min=1.0)
-    return FrameStats(
-        n_avg_pts=torch.sum(torch.where(umask, cnt_u, zero), dim=1) / nf,
-        n_touched=n_unique.to(torch.float32),
-        n_valid_pts=n_valid)
+        nf = torch.clamp(n_unique.to(torch.float32), min=1.0)
+        return FrameStats(
+            n_avg_pts=torch.sum(torch.where(umask, cnt_u, zero), dim=1) / nf,
+            n_touched=n_unique.to(torch.float32),
+            n_valid_pts=n_valid)
 
 
 def encode_corner_features(params: Dict[str, Any], pts_w, normals, valid,

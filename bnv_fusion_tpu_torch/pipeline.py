@@ -24,7 +24,6 @@ from __future__ import annotations
 import logging
 import os
 import threading
-import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -37,7 +36,7 @@ from bnv_fusion_tpu_torch import optimize, sampler, table_blocks, tsdf
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel as vx
 from bnv_fusion_tpu_torch.kernels import fused_decode
-from bnv_fusion_tpu_torch.utils import image_io
+from bnv_fusion_tpu_torch.utils import image_io, profiling
 
 log = logging.getLogger(__name__)
 
@@ -81,24 +80,6 @@ def check_supported(config) -> None:
             "with model.table_layout=spatial — the spatial layout already "
             "owns the device mesh; spatial maps optimize through the "
             "single-program step on owner-assembled rows")
-
-
-class Timer:
-    """Accumulating phase timer; ``sync`` (e.g. torch.cuda.synchronize)
-    runs before each reading so device work is counted where it ran."""
-
-    def __init__(self, names, sync=None):
-        self.times = {n: 0.0 for n in names}
-        self._start: Dict[str, float] = {}
-        self._sync = sync or (lambda: None)
-
-    def start(self, name):
-        self._sync()
-        self._start[name] = time.time()
-
-    def log(self, name):
-        self._sync()
-        self.times[name] += time.time() - self._start.pop(name)
 
 
 def _frame_points(depth, T_wc, intr):
@@ -233,7 +214,8 @@ class NeuralMap:
             int(getattr(config.trainer, "seed", 0)))
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else None)
-        self.timer = Timer(["local", "global", "mesh", "inc_mesh"], sync=sync)
+        self.timer = profiling.PhaseTimer(["local", "global", "mesh",
+                                           "inc_mesh"], sync=sync)
         self.optimize_losses: List[float] = []
         self.last_optimize_iters = 0
         # model.error_guided_sampling: one patch error map per frame, keyed
@@ -481,7 +463,8 @@ class NeuralMap:
         ``model.fuse_algorithm`` and ``fuse_dtype``, then the prior (and its
         colour, given ``rgb``) at obs_weight 1."""
         max_unique, mu_cells = self._width_values()
-        pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
+        with profiling.span("fuse.points"):
+            pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
         stats = fusion.fuse_frame(
             self.table, self.params, pts_w, normals_w, valid, self.bound_min,
             self.bound_max, self.voxel_size, self.min_pts_in_grid,
@@ -490,7 +473,8 @@ class NeuralMap:
             algorithm=str(getattr(self.config.model, "fuse_algorithm",
                                   "cell")),
             max_unique_cells=mu_cells)
-        self._integrate_prior(depth, T_wc, intr, rgb=rgb)
+        with profiling.span("fuse.prior"):
+            self._integrate_prior(depth, T_wc, intr, rgb=rgb)
         return stats
 
     def _fuse_sharded(self, depth, T_wc, intr, rgb=None) -> fusion.FrameStats:
@@ -514,7 +498,8 @@ class NeuralMap:
             step = dp.make_sharded_fuse_frame(
                 self._group, self.params, self.voxel_size,
                 self.min_pts_in_grid, self.table, **kw)
-        pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
+        with profiling.span("fuse.points"):
+            pts_w, normals_w, valid = _frame_points(depth, T_wc, intr)
         pad = -pts_w.shape[0] % self._fuse_devices
         if pad:
             pts_w = torch.cat([pts_w, pts_w.new_zeros((pad, 3))])
@@ -522,7 +507,8 @@ class NeuralMap:
             valid = torch.cat([valid, valid.new_zeros((pad,))])
         stats = step(self.table, pts_w, normals_w, valid, self.bound_min,
                      self.bound_max)
-        self._integrate_prior(depth, T_wc, intr, rgb=rgb)
+        with profiling.span("fuse.prior"):
+            self._integrate_prior(depth, T_wc, intr, rgb=rgb)
         return stats
 
     def integrate(self, frame: Dict[str, Any]):
@@ -532,13 +518,19 @@ class NeuralMap:
         skipped."""
         if np.any(np.isnan(np.asarray(frame["T_wc"]))):
             return None
+        with profiling.span("fuse"):
+            self._integrate(frame)
+
+    def _integrate(self, frame: Dict[str, Any]):
+        """``integrate``'s work, inside its ``fuse`` span."""
         self._check_window_intr([frame])
         self._ensure_window(frame)
-        depth = self._tensor(frame["depth"])
-        T_wc = self._tensor(frame["T_wc"])
-        intr = self._tensor(frame["intr_mat"])
-        rgb = (self._rgb_tensor(self._frame_rgb(frame)) if self.fuse_color
-               else None)
+        with profiling.span("fuse.stage"):
+            depth = self._tensor(frame["depth"])
+            T_wc = self._tensor(frame["T_wc"])
+            intr = self._tensor(frame["intr_mat"])
+            rgb = (self._rgb_tensor(self._frame_rgb(frame)) if self.fuse_color
+                   else None)
         if self._auto_widths:
             staged = (depth[None], T_wc[None], intr[None])
             if self._widths is None:
@@ -546,7 +538,8 @@ class NeuralMap:
             self._last_staged_dev = staged
         fuse = self._fuse_sharded if self._fuse_devices > 1 else self._fuse_one
         stats = fuse(depth, T_wc, intr, rgb)
-        self._note_overflow()
+        with profiling.span("fuse.overflow"):
+            self._note_overflow()
         self._pending_stats.append(stats.n_avg_pts.reshape(1))
         self._fuse_epoch += 1
         self.frames.append({"depth": depth, "T_wc": T_wc, "intr": intr,
@@ -617,6 +610,12 @@ class NeuralMap:
                 if not np.any(np.isnan(np.asarray(f["T_wc"])))]
         if not keep:
             return
+        with profiling.span("fuse"):
+            self._integrate_batch(keep)
+
+    def _integrate_batch(self, keep: List[Dict[str, Any]]):
+        """``integrate_batch``'s work on the frames it keeps, inside its
+        ``fuse`` span."""
         self._check_window_intr(keep)
         self._ensure_window(keep[0])
         m = self.config.model
@@ -624,15 +623,17 @@ class NeuralMap:
         merged = (bool(getattr(m, "fuse_batch_merge", True)) and
                   algorithm.startswith("cell"))
         every = int(getattr(m, "tsdf_every", 1)) if merged else 1
-        staged = self._stack_batch(keep, rgb_every=every)
-        if "raw" in staged:
-            depths = self._convert_raw_depth(staged["raw"], staged["scale"])
-        else:
-            depths = self._tensor(staged["depth"])
-        T_wcs = self._tensor(staged["T_wc"])
-        intrs = self._tensor(staged["intr"])
-        rgbs = (self._rgb_tensor(staged["rgb"]) if "rgb" in staged
-                else [None] * len(keep))
+        with profiling.span("fuse.stage"):
+            staged = self._stack_batch(keep, rgb_every=every)
+            if "raw" in staged:
+                depths = self._convert_raw_depth(staged["raw"],
+                                                 staged["scale"])
+            else:
+                depths = self._tensor(staged["depth"])
+            T_wcs = self._tensor(staged["T_wc"])
+            intrs = self._tensor(staged["intr"])
+            rgbs = (self._rgb_tensor(staged["rgb"]) if "rgb" in staged
+                    else [None] * len(keep))
         if self._auto_widths:
             if self._widths is None:
                 self._size_widths(depths, T_wcs, intrs)
@@ -642,11 +643,12 @@ class NeuralMap:
                 self._fuse_one(d, t, i, c).n_avg_pts.reshape(1)
                 for d, t, i, c in zip(depths, T_wcs, intrs, rgbs)])
         else:
-            pts = [_frame_points(d, t, i)
-                   for d, t, i in zip(depths, T_wcs, intrs)]
-            pts_w, normals_w, valid = (torch.stack([p[j] for p in pts])
-                                       for j in range(3))
-            del pts
+            with profiling.span("fuse.points"):
+                pts = [_frame_points(d, t, i)
+                       for d, t, i in zip(depths, T_wcs, intrs)]
+                pts_w, normals_w, valid = (torch.stack([p[j] for p in pts])
+                                           for j in range(3))
+                del pts
             max_unique, mu_cells = self._width_values()
             n_avg = fusion.fuse_frames_merged(
                 self.table, self.params, pts_w, normals_w, valid,
@@ -659,11 +661,13 @@ class NeuralMap:
                 front_chunks=int(getattr(m, "fuse_front_chunks", 1))
             ).n_avg_pts.reshape(-1)
             del pts_w, normals_w, valid
-            for j in range(0, len(keep), every):
-                self._integrate_prior(depths[j], T_wcs[j], intrs[j],
-                                      obs_weight=float(every),
-                                      rgb=rgbs[j // every])
-        self._note_overflow()
+            with profiling.span("fuse.prior"):
+                for j in range(0, len(keep), every):
+                    self._integrate_prior(depths[j], T_wcs[j], intrs[j],
+                                          obs_weight=float(every),
+                                          rgb=rgbs[j // every])
+        with profiling.span("fuse.overflow"):
+            self._note_overflow()
         self._pending_stats.append(n_avg)
         self._fuse_epoch += 1
         for f, d, t, i in zip(keep, depths, T_wcs, intrs):

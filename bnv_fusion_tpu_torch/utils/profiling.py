@@ -1,10 +1,20 @@
-"""Tracing / profiling: phase timers, device-memory stats, profiler capture.
+"""Tracing / profiling: the phase timer, the profiler capture and the
+program's spans.
 
 Counterpart of bnv_fusion_tpu/utils/profiling.py:17-86.  ``PhaseTimer`` is
-unchanged; the device instruments use torch: ``torch.cuda.memory_stats``
-per card, ``torch.profiler`` with a Chrome trace export, and
-``torch.profiler.record_function`` for named regions.  Without a card they
-report what torch gives and claim no device.
+the JAX package's, with an optional ``sync`` run before each reading (on a
+card, ``torch.cuda.synchronize``, so that device work is counted in the
+phase that queued it).  ``maybe_trace`` captures a block with
+``torch.profiler`` and exports a Chrome trace.
+
+``span(name)`` names a stage of the program.  Outside a profiler capture it
+costs one flag check and records nothing.  Inside one (``maybe_trace``, or
+any ``torch.profiler.profile``) it opens a host range named ``name`` on the
+profiler's clock, as a host operation (``_RecordFunctionFast``), so the
+profiler makes no device-side copy of it.  What a stage costs is read from
+the capture: its ranges' host time, and the CUDA runtime's host waits
+(``cudaStreamSynchronize``, ``cudaEventSynchronize``) that start inside
+them.
 """
 
 from __future__ import annotations
@@ -16,19 +26,26 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
+_PROFILER = torch.autograd.profiler
+
 
 class PhaseTimer:
-    """Accumulating phase timer with fps reporting."""
+    """Accumulating phase timer with fps reporting; ``sync`` (e.g.
+    torch.cuda.synchronize) runs before each reading, so device work is
+    counted in the phase that queued it."""
 
-    def __init__(self, names):
+    def __init__(self, names, sync=None):
         self.times: Dict[str, float] = {n: 0.0 for n in names}
         self.counts: Dict[str, int] = {n: 0 for n in names}
         self._start: Dict[str, float] = {}
+        self._sync = sync or (lambda: None)
 
     def start(self, name: str) -> None:
+        self._sync()
         self._start[name] = time.time()
 
     def log(self, name: str) -> None:
+        self._sync()
         self.times[name] += time.time() - self._start.pop(name)
         self.counts[name] += 1
 
@@ -51,30 +68,12 @@ class PhaseTimer:
             for n in self.times)
 
 
-def device_memory_stats() -> Dict[str, Dict[str, float]]:
-    """Per-card memory in GB, keyed ``cuda:<i> (<name>)``: bytes in use,
-    the peak and the card's total.  Empty when torch sees no card."""
-    gb = 1024 ** 3
-    out = {}
-    if not torch.cuda.is_available():
-        return out
-    for i in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(i)
-        out[f"cuda:{i} ({torch.cuda.get_device_name(i)})"] = {
-            "bytes_in_use_gb": stats.get("allocated_bytes.all.current", 0) / gb,
-            "peak_bytes_in_use_gb": stats.get("allocated_bytes.all.peak",
-                                              0) / gb,
-            "bytes_limit_gb":
-                torch.cuda.get_device_properties(i).total_memory / gb,
-        }
-    return out
-
-
 @contextlib.contextmanager
 def maybe_trace(log_dir: Optional[str]) -> Iterator[None]:
     """torch.profiler capture of the block (CPU, plus CUDA where a card is
     present) exported as ``<log_dir>/trace.json`` (Chrome trace format)
-    when a log dir is given, else a no-op."""
+    when a log dir is given, else a no-op.  The program's spans are in the
+    trace."""
     if not log_dir:
         yield
         return
@@ -89,8 +88,12 @@ def maybe_trace(log_dir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region in profiler timelines."""
-    with torch.profiler.record_function(name):
-        yield
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The program's span round a stage (a context manager; see the module
+    docstring)."""
+    if not _PROFILER._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)

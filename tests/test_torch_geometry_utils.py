@@ -194,13 +194,18 @@ def test_profiling_on_cpu(tmp_path):
     timer.log("b")
     assert timer.counts == {"a": 1, "b": 1} and "a:" in timer.summary()
     assert timer.fps("a", steps=0) == 0.0 or timer.times["a"] == 0.0
-    # no card here: the port claims none
-    assert tprof.device_memory_stats() == {}
+    # sync runs before each reading
+    synced = []
+    timer = tprof.PhaseTimer(["a"], sync=lambda: synced.append(1))
+    with timer.phase("a"):
+        pass
+    assert len(synced) == 2 and timer.counts == {"a": 1}
     with tprof.maybe_trace(str(tmp_path / "trace")):
-        with tprof.annotate("work"):
+        with tprof.span("work"):
             torch.ones(8).sum()
     trace = json.load(open(tmp_path / "trace" / "trace.json"))
-    assert any(e.get("name") == "work" for e in trace["traceEvents"])
+    work = [e for e in trace["traceEvents"] if e.get("name") == "work"]
+    assert work and all(e["cat"] == "cpu_op" for e in work)
     with tprof.maybe_trace(None):
         pass
 
