@@ -73,8 +73,10 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 // acc[m] = bias + A[m] W for MT row tiles and NT n-tiles of output; A[m]
 // is given as KS k-steps of raw f32 A fragments, W as KS * NT * 32 float4
 // in shared memory (layout above), bias as 8 * NT floats in shared memory.
-// No ReLU here.
-template <int KS, int MT, int NT = kNTiles>
+// No ReLU here.  kOnePass takes the hi * hi product alone: exact where
+// every operand is already a TF32 value (bfloat16-rounded activations and
+// weights, whose lo parts are zero), and a third of the work.
+template <int KS, int MT, int NT = kNTiles, bool kOnePass = false>
 __device__ __forceinline__ void layer(const float (&a)[MT][8][4],
                                       float (&acc)[MT][NT][4],
                                       const float4* __restrict__ w,
@@ -98,7 +100,12 @@ __device__ __forceinline__ void layer(const float (&a)[MT][8][4],
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split(a[m][j][q], hi[m][q], lo[m][q]);
+      for (int q = 0; q < 4; ++q) {
+        if (kOnePass)
+          hi[m][q] = to_tf32(a[m][j][q]);
+        else
+          split(a[m][j][q], hi[m][q], lo[m][q]);
+      }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const float4 b = w[(j * NT + n) * 32 + lane];
@@ -106,8 +113,10 @@ __device__ __forceinline__ void layer(const float (&a)[MT][8][4],
       const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        mma(acc[m][n], lo[m], bh0, bh1);
-        mma(acc[m][n], hi[m], bl0, bl1);
+        if (!kOnePass) {
+          mma(acc[m][n], lo[m], bh0, bh1);
+          mma(acc[m][n], hi[m], bl0, bl1);
+        }
         mma(acc[m][n], hi[m], bh0, bh1);
       }
     }

@@ -27,6 +27,7 @@ from bnv_fusion_tpu_torch import table as _hash
 from bnv_fusion_tpu_torch import tables as tbl
 from bnv_fusion_tpu_torch import voxel
 from bnv_fusion_tpu_torch.kernels import (fused_corner_decode,
+                                          fused_encode_sorted,
                                           seg_reduce_sorted,
                                           seg_reduce_sorted_torch)
 from bnv_fusion_tpu_torch.utils import profiling
@@ -284,31 +285,18 @@ def fuse_frame_cellsort(table, params: Dict[str, Any], pts_w, normals, valid,
     return stats._replace(n_valid_pts=n_valid)
 
 
-def _encode_sorted_fm(params, coords_s, normals_s, entry_valid,
-                      compute_dtype: torch.dtype = torch.float32):
-    """Encoder over one frame's sorted points, FEATURE-MAJOR output [F*8, N]
-    with channel = f*8 + p (feature-major, corner-minor) — the layout the
-    segmented reduce takes.  Invalid points encode to zero."""
-    n = coords_s.shape[0]
-    corners = voxel.corner_neighbors(coords_s)
-    rel = voxel.local_offsets(coords_s, corners)                 # [N, 8, 3]
-    pn_in = torch.cat([rel, normals_s[:, None, :].expand_as(rel)], dim=-1)
-    feats = bnn.encoder_apply(params, pn_in, compute_dtype)      # [N, 8, F]
-    feats = torch.where(entry_valid[:, None, None], feats,
-                        torch.zeros((), device=feats.device))
-    return feats.permute(2, 1, 0).reshape(-1, n)
-
-
 def _cellsort_reduce_batched(params, pts_w, normals, valid, bound_min,
                              bound_max, voxel_size: float, max_unique: int,
                              max_unique_cells: Optional[int], n_xyz,
                              n_vox: int, fdim: int, plain: bool = False,
                              sort_bf16: bool = False,
                              compute_dtype: torch.dtype = torch.float32):
-    """K-frame batched reduce front: both segment reductions go through
-    ``seg_reduce_sorted`` (the CUDA kernel on CUDA tensors; with ``plain``
-    the plain PyTorch version on any device).  Inputs are [K, N, ...];
-    returns the per-frame tuple of ``_cellsort_reduce`` stacked over K.
+    """K-frame batched reduce front: the encoder goes through
+    ``fused_encode_sorted`` (one CUDA kernel launch for the K frames on
+    CUDA tensors) and both segment reductions through ``seg_reduce_sorted``
+    (the CUDA kernel on CUDA tensors; with ``plain`` the plain PyTorch
+    version on any device).  Inputs are [K, N, ...]; returns the per-frame
+    tuple of ``_cellsort_reduce`` stacked over K.
 
     ``sort_bf16`` rounds the stage-2 per-cell partial sums to bfloat16
     (round to nearest even) before the corner merge, as the JAX package's
@@ -323,12 +311,9 @@ def _cellsort_reduce_batched(params, pts_w, normals, valid, bound_min,
             pts_w, normals, valid, bound_min, bound_max, voxel_size, n_xyz,
             n_vox)
         entry_valid = cell_s < n_vox                             # [K, N]
-    # encoder one frame at a time: its [8N, 64] activations dominate memory
     with profiling.span("fuse.encode"):
-        f8fm = torch.empty((kf, 8 * fdim, n), dtype=torch.float32, device=dev)
-        for k in range(kf):
-            f8fm[k] = _encode_sorted_fm(params, coords_s[k], normals_s[k],
-                                        entry_valid[k], compute_dtype)
+        f8fm = fused_encode_sorted(params, coords_s, normals_s, entry_valid,
+                                   compute_dtype)
 
     with profiling.span("fuse.reduce1"):
         cnts1 = entry_valid.to(torch.int32)[:, None, :].contiguous()
@@ -387,7 +372,8 @@ def fuse_frames_merged(table, params: Dict[str, Any], pts_w, normals, valid,
     ``seg_kernel``: True = the batched front with ``seg_reduce_sorted`` (the
     CUDA kernel on CUDA tensors); "interpret" = the batched front with the
     plain seg-reduce; False = the per-frame cumsum front of
-    ``_cellsort_reduce``.  ``front_chunks`` > 1 runs the front over
+    ``_cellsort_reduce``.  The batched front encodes through
+    ``fused_encode_sorted``.  ``front_chunks`` > 1 runs the front over
     K/front_chunks-frame sub-batches (the seg-reduce launches once per
     sub-batch), which bounds the front's memory; the merge and the table
     update still span all K frames, and the front is frame-independent, so

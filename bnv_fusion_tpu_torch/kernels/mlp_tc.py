@@ -20,11 +20,10 @@ PERM = (0, 2, 4, 6, 1, 3, 5, 7)
 def permute_rows(w: torch.Tensor) -> torch.Tensor:
     """w [K, N] (K a multiple of 8) with row 8j + kk taken from row
     8j + PERM[kk]: the weights of a layer whose A operand is the previous
-    layer's accumulators."""
-    k = w.shape[0]
-    perm = torch.tensor([8 * (i // 8) + PERM[i % 8] for i in range(k)],
-                        device=w.device)
-    return w[perm]
+    layer's accumulators.  PERM[4a + b] = 2b + a, so it is a reshape and a
+    transpose, with no index tensor to copy to the device (a host wait)."""
+    k, n = w.shape
+    return w.reshape(k // 8, 4, 2, n).transpose(1, 2).reshape(k, n)
 
 
 def split_tf32(x: torch.Tensor):

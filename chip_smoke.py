@@ -15,7 +15,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      update, fused mesh decode, 64 optimization steps) on seeded random
      weights; the kernels' launch counts are zeroed just before and read
      just after;
-  5. check the outputs: both kernels launched, no overflow, finite losses,
+  5. check the outputs: seg_reduce_sorted, fused_corner_decode and
+     fused_encode launched, no overflow, finite losses,
      a non-empty binary final.ply, the saved map, and one K-batch fused
      through the kernel equal to the same batch through the plain
      seg-reduce (tables compared by voxel key);
@@ -126,7 +127,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      fuse_batch_merge=false, fuse_algorithm=corner) against the default
      fuse of one K=16 batch, with its seg-reduce launches and peak device
      memory, the per-frame routes also through a float64-cumsum copy, and
-     K=32 in 2 front chunks; the stage-1 sort's two formulations timed;
+     K=32 in 2 front chunks; fused_encode launched once per K=16 update
+     and per front chunk of the K-merged front (float32 and bfloat16),
+     never on the per-frame fronts;
+     the stage-1 sort's two formulations timed;
  10. bigscene: profiling/profile_bigscene.py's 14 x 14 x 4 m scene at
      voxel 0.01 (790.2M voxels): the e2e phase's 48 frames written in the
      canonical layout with those dimensions, through run_inference scene3d
@@ -202,8 +206,17 @@ layers run on the tensor cores in 3xTF32, they are three TF32 products of
 the hidden layers at 495 TFLOP/s (the 64->1 output layer and the blend at
 67 TFLOP/s are ~1% of that); for fused_mlp, three TF32 products of every
 layer on the tensor cores (all four; for dout = 1 the output layer stays
-on FMAs).  The bound of the same work on f32 FMAs alone is printed beside
-each.
+on FMAs); for fused_encode the same for the valid points' 8 corners (its
+line also gives the work counted once, as benchmark/rooflines.py counts
+it).  The bound of the same work on f32 FMAs alone is printed beside
+fused_corner_decode's and fused_mlp's.
+fused_encode is checked at the main path's front (K=16 x 307,200 points,
+62% valid and sorted first, timed, and timed again all valid), at a
+ragged N with a frame without a valid point, and for identical bits
+over two launches; its bfloat16 variant (model.fuse_dtype=bfloat16) at
+the main path's front against the plain bfloat16 encoder, within
+ENC_BF16_TOL and on average within a hundredth of the bfloat16
+operands' own effect, timed.
 The seg-reduce checks include edge cases at the kernel's own tile
 (tile_rows() rows): a segment over >= 3 tiles with a run of tiles without
 an end, M not a multiple of the tile (with M % 4 != 0, the scalar-load
@@ -275,6 +288,15 @@ BIAS_STD = 0.1
 # pass, modelled in numpy, would miss by ~6e-3)
 MLP_ATOL = MLP_RTOL = 1e-4
 ENC_ROWS = 480 * 640 * 8          # profiling/profile_fused_mlp.py:16
+# fused_encode at the main path's front: K=16 frames of 480x640 points,
+# the share inside the bounds that the benchmark's scene3d.stream frames
+# give (its fuse.mfu, 0.62% of 9.09 ms a frame on an H100, counts 192k of
+# 307,200 points), sorted first as the front's stage-1 sort leaves them
+ENC_K, ENC_N, ENC_INSIDE = 16, 480 * 640, 0.62
+# its bfloat16 variant against the plain bfloat16 encoder: a hidden
+# activation's rounding flipped by one bfloat16 ulp through the later
+# layers (tests/test_torch_fused_encode.py's BF16_TOL)
+ENC_BF16_TOL = 2.0 ** -5
 # the prefetch on/off measurement: pairs of run_e2e's optimize (64 steps,
 # the fast_e2e budget) plus the final extract_mesh, in alternating order
 PREFETCH_ITERS = 64
@@ -503,6 +525,122 @@ def check_seg(name, keys, keys2, cnts, vals, u, sent, timed=False):
             n_bytes, n_flops)
 
 
+def encode_points(k, n, inside, g):
+    """Sorted-front-like encoder inputs on the card: voxel coordinates in
+    [0, 250) (a fifth on integers, where corners collapse), unit normals,
+    the first ``inside`` share of each frame valid (or ``inside`` a [k, n]
+    mask), invalid entries zeroed as the stage-1 sort leaves them."""
+    import torch
+
+    coords = torch.rand((k, n, 3), generator=g, device="cuda") * 250
+    snap = torch.rand((k, n, 3), generator=g, device="cuda") < 0.2
+    coords = torch.where(snap, coords.round(), coords)
+    normals = torch.nn.functional.normalize(
+        torch.randn((k, n, 3), generator=g, device="cuda"), dim=-1)
+    valid = (inside if torch.is_tensor(inside) else
+             (torch.arange(n, device="cuda") < int(inside * n)).expand(k, n))
+    valid = valid.contiguous()
+    zero = torch.zeros((), device="cuda")
+    return (torch.where(valid[..., None], coords, zero),
+            torch.where(valid[..., None], normals, zero), valid)
+
+
+def check_fused_encode(g):
+    """fused_encode_sorted against the plain version: at the main path's
+    front (ENC_K x ENC_N points, ENC_INSIDE valid; timed, and timed again
+    with every point valid), at a ragged N with a frame without a valid
+    point and one valid at random, and two launches that must give
+    identical bits; the bfloat16 variant at the main path's front against
+    the plain bfloat16 encoder, timed.  Returns the kernels-line entry: the
+    timed shape's
+    bound counts three TF32 products of every layer for the valid points'
+    8 corners (3xTF32, as fused_mlp's), the bytes the inputs and the
+    [K, 64, N] output need."""
+    import torch
+    from bnv_fusion_tpu_torch import nn as bnn
+    from bnv_fusion_tpu_torch.kernels import (fused_encode_sorted,
+                                              fused_encode_sorted_torch)
+
+    params = bnn.init_model(0, device="cuda", bias_std=BIAS_STD)
+    enc = params["encoder"]
+    errs = {}
+
+    def check(name, pts):
+        y = fused_encode_sorted(params, *pts)
+        ref = fused_encode_sorted_torch(params, *pts)
+        torch.cuda.synchronize()
+        err = (y - ref).abs()
+        if bool((err > MLP_ATOL + MLP_RTOL * ref.abs()).any()):
+            raise AssertionError(f"fused_encode {name}: max abs err "
+                                 f"{float(err.max()):.3e}")
+        if bool(y[:, :, ~pts[2].any(0)].any()):
+            raise AssertionError(f"fused_encode {name}: non-zero features "
+                                 "at invalid points")
+        errs[name] = float(err.max())
+        return y
+
+    rag = 32 * 1000 + 17
+    mask = torch.rand((3, rag), generator=g, device="cuda") < 0.6
+    mask[1] = False
+    check(f"K=3 N={rag}, a frame without a valid point",
+          encode_points(3, rag, mask, g))
+    main = encode_points(ENC_K, ENC_N, ENC_INSIDE, g)
+    y1 = check(f"K={ENC_K} N={ENC_N} inside {ENC_INSIDE}", main)
+    y2 = fused_encode_sorted(params, *main)
+    torch.cuda.synchronize()
+    if not torch.equal(y1.view(torch.int32), y2.view(torch.int32)):
+        raise AssertionError("fused_encode: two launches differ")
+    print("  fused_encode: two launches give identical bits", flush=True)
+    bf16 = torch.bfloat16
+    yb = fused_encode_sorted(params, *main, compute_dtype=bf16)
+    ref = fused_encode_sorted_torch(params, *main, bf16)
+    err = (yb - ref).abs()
+    moved = float((ref - y1).abs().mean())
+    print(f"  fused_encode bfloat16 vs the plain bfloat16 encoder: max abs "
+          f"{float(err.max()):.3e}, mean {float(err.mean()):.3e} (the "
+          f"bfloat16 operands move the float32 kernel by {moved:.3e} on "
+          f"average)", flush=True)
+    if bool((err > ENC_BF16_TOL + ENC_BF16_TOL * ref.abs()).any()) or \
+            float(err.mean()) > 1e-2 * moved:
+        raise AssertionError("fused_encode bfloat16: beyond its tolerance")
+    if not torch.equal(yb.view(torch.int32), fused_encode_sorted(
+            params, *main, compute_dtype=bf16).view(torch.int32)):
+        raise AssertionError("fused_encode bfloat16: two launches differ")
+    del y1, y2, yb, ref, err
+    bf_ms = median_ms(lambda: fused_encode_sorted(params, *main,
+                                                  compute_dtype=bf16))
+    bf_plain = median_ms(lambda: fused_encode_sorted_torch(params, *main,
+                                                           bf16))
+    print(f"  fused_encode bfloat16 K={ENC_K} N={ENC_N} inside "
+          f"{ENC_INSIDE}: kernel {bf_ms:.3f} ms, plain {bf_plain:.3f} ms",
+          flush=True)
+    hidden = sum(enc[k].numel() for k in ("w0", "w1", "w2", "w_out"))
+    out = {}
+    for share in (ENC_INSIDE, 1.0):
+        pts = main if share == ENC_INSIDE else \
+            encode_points(ENC_K, ENC_N, share, g)
+        ms = median_ms(lambda: fused_encode_sorted(params, *pts))
+        plain_ms = median_ms(lambda: fused_encode_sorted_torch(params, *pts))
+        rows = 8 * int(pts[2].sum())
+        n_bytes = nbytes(*pts) + ENC_K * 64 * ENC_N * 4 + \
+            nbytes(*enc.values())
+        b = bound(n_bytes, 0.0, rows * 3 * 2 * hidden)
+        once = bound(n_bytes, 0.0, rows * 2 * hidden)
+        print(f"  fused_encode K={ENC_K} N={ENC_N} inside {share}: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms "
+              f"({b[1]}, 3xTF32 on the tensor cores; counted once "
+              f"{once[0]:.3f} ms, {100 * once[0] / ms:.1f}% of the kernel's "
+              f"time)", flush=True)
+        if share == ENC_INSIDE:
+            out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                   "bound_by": b[1]}
+        del pts
+    out["max_abs_err"] = max(errs.values())
+    print("  fused_encode max_abs_err by case: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    return out
+
+
 def phase_kernels():
     import torch
     from bnv_fusion_tpu_torch import nn as bnn
@@ -632,6 +770,7 @@ def phase_kernels():
                                   "plain_ms": times[1],
                                   "bound_ms": dec_bound[0],
                                   "bound_by": dec_bound[1]}
+    res["fused_encode"] = check_fused_encode(g)
     return res
 
 
@@ -1806,12 +1945,17 @@ def phase_fuse(params, card):
     nm.integrate_batches(batches)
     nm._note_overflow(flush=True)
     n_seg = _build.LAUNCHES["seg_reduce_sorted"]
+    n_enc = _build.LAUNCHES["fused_encode"]
     print(f"  auto widths: probed max_unique_per_frame={nm._widths[0]}, "
           f"cells={nm._widths[1]} (explicit 116736, 65536); overflow "
-          f"{nm.overflow}; {n_seg} seg_reduce launches for 3 batches",
-          flush=True)
+          f"{nm.overflow}; {n_seg} seg_reduce and {n_enc} fused_encode "
+          f"launches for {len(batches)} batches", flush=True)
     if nm.overflow:
         failed.append("auto widths overflow")
+    if n_enc != len(batches):
+        failed.append("fused_encode launches per K=16 update")
+        print(f"  FAILED fused_encode launched {n_enc} times for "
+              f"{len(batches)} K=16 updates", flush=True)
     err = check("auto == explicit", lambda: same_table(
         "auto widths vs explicit", table_by_key(nm), staged, atol=2e-3))
     print(f"  auto-width table vs explicit: keys, weights, hits exact, "
@@ -1855,16 +1999,35 @@ def phase_fuse(params, card):
         torch.cuda.synchronize()
         out = (table_by_key(nm), _build.LAUNCHES["seg_reduce_sorted"],
                torch.cuda.max_memory_allocated() / 2**30, nm.overflow)
+        launched["fused_encode"] = _build.LAUNCHES["fused_encode"]
         del nm
         return out
+
+    # fused_encode launches per K-frame update: one per front chunk of
+    # the K-merged front, none on the per-frame fronts
+    launched = {}
+    want_enc = {"": 1, "fuse_sort1_gather=true": 1, "fuse_front_chunks=2": 2,
+                "fuse_dtype=bfloat16": 1, "fuse_batch_merge=false": 0,
+                "fuse_algorithm=corner": 0}
+
+    def count_encode(name):
+        n_enc = launched["fused_encode"]
+        print(f"  {name or 'default'}: {n_enc} fused_encode launches",
+              flush=True)
+        if n_enc != want_enc[name]:
+            failed.append(f"{name or 'default'} fused_encode launches")
+            print(f"  FAILED {name or 'default'}: fused_encode launched "
+                  f"{n_enc} times, want {want_enc[name]}", flush=True)
 
     base, n_base, peak16, _ = option([])
     print(f"  default fuse, K=16: {n_base} seg_reduce launches, peak "
           f"{peak16:.2f} GiB", flush=True)
+    count_encode("")
     for name, tol in (("fuse_sort1_gather=true", None),
                       ("fuse_front_chunks=2", None),
                       ("fuse_dtype=bfloat16", (0.02, 0.02))):
         t, n_seg, peak, ovf = option([f"model.{name}"])
+        count_encode(name)
         err = check(name, lambda: same_table(name, t, base,
                                              *(tol or (None,))))
         if name == "fuse_dtype=bfloat16" and np.array_equal(t[1], base[1]):
@@ -1883,6 +2046,7 @@ def phase_fuse(params, card):
     front = option(["model.use_seg_reduce_kernel=false"])[0]
     for name in ("fuse_batch_merge=false", "fuse_algorithm=corner"):
         t, n_seg, peak, ovf = option([f"model.{name}"])
+        count_encode(name)
         t64 = option([f"model.{name}"], float64=True)[0]
         e64 = check(f"{name} float64 copy", lambda: same_table(
             f"{name} with a float64 cumsum vs the kernel front", t64, exact,
@@ -1913,7 +2077,11 @@ def phase_fuse(params, card):
                                       f"model.fuse_front_chunks={chunks}"],
                                      frames[:32])
         big[chunks] = t
+        if launched["fused_encode"] != chunks:
+            failed.append(f"K=32 fuse_front_chunks={chunks} fused_encode "
+                          "launches")
         print(f"  K=32, fuse_front_chunks={chunks}: {n_seg} seg_reduce "
+              f"and {launched['fused_encode']} fused_encode "
               f"launches, peak {peak:.2f} GiB (K=16, 1 chunk: "
               f"{peak16:.2f} GiB), overflow {ovf}", flush=True)
     check("K=32 chunks", lambda: same_table(
@@ -3171,7 +3339,8 @@ def main() -> int:
         print(f"  peak device memory: {peak / 2**30:.2f} GiB; e2e wall "
               f"{wall:.1f} s", flush=True)
 
-        for name in ("seg_reduce_sorted", "fused_corner_decode"):
+        for name in ("seg_reduce_sorted", "fused_corner_decode",
+                     "fused_encode"):
             if launches.get(name, 0) <= 0:
                 return fail(f"the main path never launched {name}")
         if nmap.overflow != 0:
@@ -3270,11 +3439,14 @@ def main() -> int:
            "fused_corner_decode": ("bnv_fusion_tpu_torch/csrc/fused_decode.cu",
                                    "bnv_fusion_tpu/kernels/fused_decode.py:64"),
            "fused_mlp": ("bnv_fusion_tpu_torch/csrc/fused_mlp.cu",
-                         "bnv_fusion_tpu/kernels/fused_mlp.py:79")}
+                         "bnv_fusion_tpu/kernels/fused_mlp.py:79"),
+           "fused_encode": ("bnv_fusion_tpu_torch/csrc/fused_encode.cu",
+                            None)}
     launches["fused_mlp"] = kres["fused_mlp"]["launches"]
-    # library_ms: no single PyTorch call computes any of the three (the MLP
+    # library_ms: no single PyTorch call computes any of the four (the MLP
     # is four F.linear calls and activations; torch.segment_reduce does not
-    # rank keys into a compacted width)
+    # rank keys into a compacted width); fused_encode replaces no TPU
+    # kernel (the JAX package leaves the encoder to XLA)
     kernels = [{"name": n, "route": "cuda", "source": src[n][0],
                 "replaces": src[n][1], "launches": launches[n],
                 "max_abs_err": kres[n]["max_abs_err"], "ms": kres[n]["ms"],

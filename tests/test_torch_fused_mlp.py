@@ -162,15 +162,18 @@ def _tf32(x):
     return ((b + 0x1000) & ~0x1FFF).astype(np.int32).view(np.float32)
 
 
-def _emulate_kernel(packed, x, din, dout, perm=mlp_tc.PERM, passes=3):
+def _emulate_kernel(packed, x, din, dout, perm=mlp_tc.PERM, passes=3,
+                    round_a=None):
     """numpy model of the kernel's arithmetic through the packed weights:
     layer 0's A operand is the input in its column order (zero past din);
     each operand split into TF32 hi/lo, products lo*hi + hi*lo + hi*hi
     (passes=3; passes=1 is one TF32 product hi*hi), exact in f32, summed
     here in float64 and rounded to f32 per layer; each later layer's A
     operand is the previous layer's accumulators, logical column 8j + kk
-    being output column 8j + perm[kk].  For dout = 1 the output layer is
-    f32 FMAs over the accumulators' own columns."""
+    being output column 8j + perm[kk].  ``round_a``, where given, rounds
+    every layer's A operand first (csrc/fused_encode.cu's bfloat16
+    operands).  For dout = 1 the output layer is f32 FMAs over the
+    accumulators' own columns."""
     layers, wo, biases = _unpack(packed, din, dout)
     ks0 = -(-din // 8)
     a = np.zeros((x.shape[0], 8 * ks0), np.float32)
@@ -180,6 +183,8 @@ def _emulate_kernel(packed, x, din, dout, perm=mlp_tc.PERM, passes=3):
     for i, ((whi, wlo), b) in enumerate(zip(layers, biases)):
         if h is not None:
             a = h[:, physical]
+        if round_a is not None:
+            a = round_a(a)
         ahi = _tf32(a)
         alo = _tf32(a - ahi)
         y = b.astype(np.float64) + ahi.astype(np.float64) @ whi
