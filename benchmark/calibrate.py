@@ -10,7 +10,9 @@ readings) and on ``--control-seeds`` seeds with the control switched on
 lower-precision path; the upper readings), each with a short window of
 whole units, and prints one JSON line per run with every compared number,
 then the largest program reading and the smallest control reading of each.
-Set-up (kernels, the process, the card) is paid once.  Needs a CUDA card.
+The cell may be one that BENCHMARK.json does not enrol yet
+(``tests/parked.json``).  Set-up (kernels, the process, the card) is paid
+once.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def main(argv=None) -> int:
     s0 = args.first_seed
     out = readings(args.workload, range(s0, s0 + args.seeds),
                    range(s0 + 1000, s0 + 1000 + args.control_seeds),
-                   args.seconds)
+                   args.seconds, bench=bench_run.bench_with_parked())
     prog = [v for v in out["program"] if v]
     ctl = [v for v in out["control"] if v]
     summary = {}

@@ -9,16 +9,20 @@ each voxel's entries of a frame are averaged; a voxel with at least
 min(count / 32, 1) by a running mean.  The frames of one table update (K
 frames; 1 on the per-frame path) are folded at once, which is the running
 mean over them in real arithmetic.  Every voxel an entry touched is
-allocated, with weight 0 where no frame kept it.  The map is dense over the
-voxel grid and held by flat voxel id; sums are ``index_add`` in frame order.
+allocated, with weight 0 where no frame kept it.  The map is held by the
+flat voxel ids that updates touched (sorted, looked up by binary search);
+sums are added in frame order.
 
-The prior is the classic projective TSDF at its own voxel size, updated over
-the window that encloses the camera frustum where that is less than 70% of
-the grid, with the same arithmetic and window placement as the system's, so
-that its values can be compared bit for bit.
+The prior is the classic projective TSDF at its own voxel size.  Where the
+system holds it dense, each update covers the window that encloses the
+camera frustum where that is less than 70% of the grid, with the same
+window placement as the system's; where the system holds it block-major
+(``prior_is_blocks``), each update covers the whole grid, since voxels
+outside the frustum cannot change.  The arithmetic is the system's, so that
+its values can be compared bit for bit.
 
-A frozen copy of the system's formulas in plain torch: no kernel, no sort,
-no table; nothing of the system is imported.
+A frozen copy of the system's formulas in plain torch: no kernel, no
+segmented reduction, no slot table; nothing of the system is imported.
 """
 
 from __future__ import annotations
@@ -151,68 +155,121 @@ def frame_voxels(grid: Grid, params, pts, normals, valid,
                              "voxels": len(uniq)}
 
 
-class DenseMap:
-    """Latents [n_vox, F], weights and hits [n_vox], allocated [n_vox]."""
+class SparseMap:
+    """The map held by the voxel ids that updates touched: ``ids`` [n]
+    sorted int64 (every held id is allocated), latents ``F`` [n, F], weights
+    ``W`` and hits ``H`` [n].  Its size follows the surface, not the grid,
+    so it fits at any grid size the system takes."""
 
     def __init__(self, grid: Grid, fdim: int, device):
         self.grid = grid
-        self.F = torch.zeros((grid.n_vox, fdim), device=device)
-        self.W = torch.zeros((grid.n_vox,), device=device)
-        self.H = torch.zeros((grid.n_vox,), device=device)
-        self.alloc = torch.zeros((grid.n_vox,), dtype=torch.bool,
-                                 device=device)
+        self.ids = torch.zeros((0,), dtype=torch.int64, device=device)
+        self.F = torch.zeros((0, fdim), device=device)
+        self.W = torch.zeros((0,), device=device)
+        self.H = torch.zeros((0,), device=device)
+
+    def _hold(self, ids: torch.Tensor):
+        """Allocate ``ids`` (sorted, unique) with zero rows."""
+        merged, inv = torch.unique(torch.cat([self.ids, ids]),
+                                   return_inverse=True)
+        old = inv[:len(self.ids)]
+        F = torch.zeros((len(merged), self.F.shape[1]), device=merged.device)
+        W = torch.zeros((len(merged),), device=merged.device)
+        H = torch.zeros_like(W)
+        F[old], W[old], H[old] = self.F, self.W, self.H
+        self.ids, self.F, self.W, self.H = merged, F, W, H
 
     def fuse(self, params, frames: List[tuple], min_pts: int,
              dtype: torch.dtype = torch.float32) -> List[Dict[str, int]]:
         """Fold one table update's frames [(pts, normals, valid), ...];
-        returns each frame's counts (``frame_voxels``)."""
-        dev = self.F.device
-        Wg = torch.zeros_like(self.W)
-        Sg = torch.zeros_like(self.F)
-        Hg = torch.zeros_like(self.H)
-        counts = []
+        returns each frame's counts (``frame_voxels``).  Each voxel's sums
+        are added in frame order, one frame at a time."""
+        parts, counts = [], []
         for pts, normals, valid in frames:
             uniq, cnt, sums, n = frame_voxels(self.grid, params, pts, normals,
                                               valid, dtype)
             counts.append(n)
-            self.alloc[uniq] = True
             keep = cnt >= min_pts
-            u, c = uniq[keep], cnt[keep]
+            c = cnt[keep]
             nw = torch.clamp(c / 32.0, max=1.0)
-            Wg[u] += nw
-            Sg[u] += sums[keep] / c[:, None] * nw[:, None]
-            Hg[u] += 1.0
+            parts.append((uniq, uniq[keep], nw,
+                          sums[keep] / c[:, None] * nw[:, None]))
+        touched = torch.unique(torch.cat([p[0] for p in parts]))
+        Wg = torch.zeros((len(touched),), device=touched.device)
+        Sg = torch.zeros((len(touched), self.F.shape[1]),
+                         device=touched.device)
+        Hg = torch.zeros_like(Wg)
+        for _, u, nw, s in parts:
+            i = torch.searchsorted(touched, u)
+            Wg[i] += nw
+            Sg[i] += s
+            Hg[i] += 1.0
+        del parts
+        self._hold(touched)
         t = torch.nonzero(Wg > 0).squeeze(1)
-        w_new = self.W[t] + Wg[t]
-        self.F[t] = (self.F[t] * self.W[t][:, None] + Sg[t]) / \
+        r = torch.searchsorted(self.ids, touched[t])
+        w_new = self.W[r] + Wg[t]
+        self.F[r] = (self.F[r] * self.W[r][:, None] + Sg[t]) / \
             torch.clamp(w_new, min=1e-12)[:, None]
-        self.W[t] = w_new
-        self.H[t] += Hg[t]
-        del Wg, Sg, Hg
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        self.W[r] = w_new
+        self.H[r] += Hg[t]
         return counts
+
+    def lookup(self, flat: torch.Tensor):
+        """(held [M], F [M, F], W [M], H [M]) at voxel ids ``flat``, zero
+        where not held."""
+        if not len(self.ids):
+            z = torch.zeros((len(flat),), device=flat.device)
+            return (z > 0, torch.zeros((len(flat), self.F.shape[1]),
+                                       device=flat.device), z, z)
+        r = torch.clamp(torch.searchsorted(self.ids, flat),
+                        max=len(self.ids) - 1)
+        held = self.ids[r] == flat
+        zero = torch.zeros((), device=flat.device)
+        return (held, torch.where(held[:, None], self.F[r], zero),
+                torch.where(held, self.W[r], zero),
+                torch.where(held, self.H[r], zero))
+
+    def dense(self):
+        """(F [n_vox, F], W [n_vox], allocated [n_vox]) over the whole grid,
+        for the stages that follow on dense grids (small grids only)."""
+        n, dev = self.grid.n_vox, self.F.device
+        F = torch.zeros((n, self.F.shape[1]), device=dev)
+        W = torch.zeros((n,), device=dev)
+        alloc = torch.zeros((n,), dtype=torch.bool, device=dev)
+        F[self.ids], W[self.ids], alloc[self.ids] = self.F, self.W, True
+        return F, W, alloc
 
 
 # ---------------------------------------------------------------------------
 # the TSDF prior
 # ---------------------------------------------------------------------------
 
+def prior_is_blocks(layout: str, dimensions, voxel_size: float) -> bool:
+    """Whether the system holds the prior block-major: under
+    ``model.tsdf_layout`` blocks, or under auto from 8M prior voxels."""
+    lo, hi, _ = world_range(dimensions, voxel_size)
+    n = int(np.prod(np.ceil((hi - lo) / voxel_size)))
+    return layout == "blocks" or (layout == "auto" and n >= 8_000_000)
+
+
 class Prior:
     """Dense TSDF [X, Y, Z] (normalized units) and weights at
-    ``voxel_size``, starting at -5 * voxel_size, frustum-windowed updates."""
+    ``voxel_size``, starting at -5 * voxel_size.  ``windowed``: each update
+    covers the frustum's window, where that is under 70% of the grid (the
+    dense layout's updates); otherwise the whole grid, voxel centres at
+    global index x voxel_size + origin (the block-major layout's)."""
 
-    def __init__(self, dimensions, voxel_size: float, device):
+    def __init__(self, dimensions, voxel_size: float, device,
+                 windowed: bool = True):
         lo, hi, _ = world_range(dimensions, voxel_size)
         shape = tuple(int(v) for v in np.ceil((hi - lo) / voxel_size))
-        if int(np.prod(shape)) >= 8_000_000:
-            raise ValueError("the plain prior covers dense grids only")
         self.voxel_size = float(voxel_size)
         self.sdf = torch.full(shape, -5.0 * voxel_size, device=device)
         self.weight = torch.zeros(shape, device=device)
         self.origin = torch.as_tensor(lo, device=device)
         self.window: Optional[Tuple[int, int, int]] = None
-        self._decided = False
+        self._decided = not windowed
 
     def _decide(self, hw, intr: np.ndarray, max_depth: float):
         """The frustum's enclosing-sphere window, where it is under 70% of

@@ -69,6 +69,17 @@ def load_json(*parts) -> Dict[str, Any]:
         return json.load(f)
 
 
+def bench_with_parked() -> Dict[str, Any]:
+    """BENCHMARK.json with the cells it does not enrol yet added
+    (``tests/parked.json``: refine and demo, whose runs on the card spread
+    wider than a bound may, and the house scans, calibrated for a later
+    enrolment), so that their loops stay tested and calibrated."""
+    bench = load_json(ROOT, "BENCHMARK.json")
+    for k, v in load_json(HERE, "tests", "parked.json").items():
+        bench[k] = bench[k] + v
+    return bench
+
+
 def load_cell(name: str, bench: Optional[Dict[str, Any]] = None):
     """(the whole benchmark, the cell, its configuration, its traffic mix)
     by the names in BENCHMARK.json (or in ``bench``, a benchmark of the same
@@ -210,17 +221,23 @@ class Run:
 
     def reference_map(self, groups: List[List[int]]):
         """The plain map and prior after the given table updates (lists of
-        frame indices), with each frame's counts for the roofline readers."""
+        frame indices), with each frame's counts for the roofline readers.
+        The prior's updates follow the layout that the configuration routes
+        it to (``ref_fusion.prior_is_blocks``)."""
+        m = self.cfg.model
         staged = self.batch_k > 1
-        every = int(getattr(self.cfg.model, "tsdf_every", 1)) if staged else 1
+        every = int(getattr(m, "tsdf_every", 1)) if staged else 1
         grid = ref_fusion.Grid(self.dimensions, self.voxel_size,
                                self.device)
-        dmap = ref_fusion.DenseMap(grid,
-                                   int(self.config["network"]["feature_dims"]),
-                                   self.device)
-        prior = ref_fusion.Prior(self.dimensions,
-                                 float(self.cfg.model.tsdf_voxel_size),
-                                 self.device)
+        dmap = ref_fusion.SparseMap(
+            grid, int(self.config["network"]["feature_dims"]), self.device)
+        tsdf_vs = float(m.tsdf_voxel_size)
+        blocks = ref_fusion.prior_is_blocks(
+            str(getattr(m, "tsdf_layout", "auto")), self.dimensions, tsdf_vs)
+        prior = ref_fusion.Prior(
+            self.dimensions, tsdf_vs, self.device,
+            windowed=not blocks and bool(getattr(m, "tsdf_frustum_window",
+                                                 True)))
         params = self.ref_params()
         stats = []
         for g in groups:
@@ -281,43 +298,121 @@ class Run:
         return F, W, alloc
 
 
+BLOCK = 4   # a block table's and a block-major prior's block edge
+
+
+def _coords(ids: torch.Tensor, dims) -> torch.Tensor:
+    """x-major flat ids over a grid of ``dims`` -> [N, 3] coordinates."""
+    _, dy, dz = dims
+    return torch.stack([ids // (dy * dz), (ids // dz) % dy, ids % dz], -1)
+
+
+def _flat(c: torch.Tensor, dims) -> torch.Tensor:
+    """[..., 3] coordinates -> x-major flat ids over a grid of ``dims``."""
+    _, dy, dz = dims
+    return (c[..., 0] * dy + c[..., 1]) * dz + c[..., 2]
+
+
+def _block_grid(n_xyz) -> tuple:
+    return tuple(-(-int(n) // BLOCK) for n in n_xyz)
+
+
+def _table_entries(t) -> Dict[str, torch.Tensor]:
+    """The allocated entries of a slot-map table: the voxel id (``flat``,
+    x-major as the reference's ``Grid.flat``), latents, weights and hits of
+    each.  A dense table's are its first ``n_alloc`` slots, in slot order.
+    A block table's are every slot of each allocated block (``blocks``,
+    ascending; its 64 slots at block slot x 64 + the voxel's x-major offset
+    in the block) whose voxel lies inside the grid."""
+    if not hasattr(t, "block_map"):
+        n = int(t.n_alloc)
+        return {"flat": t.slot_flat[:n].long().clone(),
+                "F": t.features[:n].clone(), "W": t.weights[:n].clone(),
+                "H": t.num_hits[:n].clone()}
+    grid = _block_grid(t.n_xyz)
+    if int(np.prod(grid)) != t.block_map.shape[0]:
+        raise ValueError(f"block map of {t.block_map.shape[0]} entries over "
+                         f"a {grid} block grid")
+    blocks = torch.nonzero(t.block_map >= 0).squeeze(1)
+    local = torch.arange(BLOCK ** 3, device=blocks.device)
+    slots = t.block_map[blocks].long()[:, None] * BLOCK ** 3 + local
+    vox = (_coords(blocks, grid)[:, None, :] * BLOCK +
+           _coords(local, (BLOCK,) * 3)[None])                   # [A, 64, 3]
+    inside = torch.all(vox < torch.as_tensor(t.n_xyz, device=vox.device), -1)
+    slots = slots[inside]
+    return {"flat": _flat(vox[inside], t.n_xyz),
+            "F": t.features[slots].clone(), "W": t.weights[slots].clone(),
+            "H": t.num_hits[slots].clone(), "blocks": blocks}
+
+
+def _bricks_dense(x: torch.Tensor, nb_xyz, vol_dim) -> torch.Tensor:
+    """A block-major prior's [n_blocks, 64] bricks as [X, Y, Z], cropped to
+    ``vol_dim``."""
+    nbx, nby, nbz = nb_xyz
+    x = x.reshape(nbx, nby, nbz, BLOCK, BLOCK, BLOCK).permute(0, 3, 1, 4, 2, 5)
+    x = x.reshape(nbx * BLOCK, nby * BLOCK, nbz * BLOCK)
+    dx, dy, dz = vol_dim
+    return x[:dx, :dy, :dz].clone()
+
+
 def table_snapshot(nmap) -> Dict[str, torch.Tensor]:
-    """The allocated entries of the system's map and its prior, on the
-    device (the slot order is the system's; ``flat`` is the voxel id)."""
-    t = nmap.table
-    n = int(t.n_alloc)
-    return {"flat": t.slot_flat[:n].long().clone(),
-            "F": t.features[:n].clone(), "W": t.weights[:n].clone(),
-            "H": t.num_hits[:n].clone(),
-            "prior_sdf": nmap.tsdf_vol.sdf.clone(),
-            "prior_w": nmap.tsdf_vol.weight.clone()}
+    """The allocated entries of the system's map (``_table_entries``) and
+    its prior as a dense [X, Y, Z] grid, on the device."""
+    snap = _table_entries(nmap.table)
+    vol = nmap.tsdf_vol
+    if vol.sdf.dim() == 2:
+        snap["prior_bricks"] = vol.sdf.shape[0]
+        snap["prior_sdf"], snap["prior_w"] = (
+            _bricks_dense(x, vol.nb_xyz, vol.vol_dim)
+            for x in (vol.sdf, vol.weight))
+    else:
+        snap["prior_sdf"] = vol.sdf.clone()
+        snap["prior_w"] = vol.weight.clone()
+    return snap
 
 
 def compare_map(snap: Dict[str, torch.Tensor], dmap,
                 prior) -> Dict[str, float]:
-    """The system's map against the plain one: voxels allocated on one side
-    only or whose weight or hits differ (exact), the widest latent gap over
-    the voxels with weight as a share of the reference latents' RMS, and
-    prior voxels whose TSDF or weight differ (exact)."""
+    """The system's map against the plain one (``map_mismatch``, exact):
+    on a dense table, voxels allocated on one side only or whose weight or
+    hits differ; on a block table, blocks allocated on one side only (the
+    reference's are the blocks that hold a voxel it allocated) and in-grid
+    slots of the allocated blocks whose weight or hits differ (0 where the
+    reference allocated nothing).  The widest latent gap over the voxels
+    with weight as a share of the reference latents' RMS, and its RMS.
+    Prior voxels whose TSDF or weight differ (exact)."""
     flat = snap["flat"]
-    ref_ids = torch.nonzero(dmap.alloc).squeeze(1)
-    only_sys = int((~dmap.alloc[flat]).sum())
-    n_common = int(len(flat)) - only_sys
-    structure = only_sys + (int(len(ref_ids)) - n_common) + \
-        int((dmap.W[flat] != snap["W"]).sum()) + \
-        int((dmap.H[flat] != snap["H"]).sum())
-    held = (snap["W"] > 0) & (dmap.W[flat] > 0)
-    ref_f = dmap.F[flat[held]]
+    held, ref_F, ref_W, ref_H = dmap.lookup(flat)
+    differ = int((ref_W != snap["W"]).sum()) + int((ref_H != snap["H"]).sum())
+    if "blocks" in snap:
+        n_xyz = dmap.grid.n_xyz
+        ref_blocks = torch.unique(_flat(_coords(dmap.ids, n_xyz) // BLOCK,
+                                        _block_grid(n_xyz)))
+        sys_blocks = snap["blocks"]
+        structure = int((~torch.isin(sys_blocks, ref_blocks)).sum()) + \
+            int((~torch.isin(ref_blocks, sys_blocks)).sum()) + differ
+    else:
+        only_sys = int((~held).sum())
+        structure = only_sys + (len(dmap.ids) - (len(flat) - only_sys)) + \
+            differ
+    keep = (snap["W"] > 0) & (ref_W > 0)
+    ref_f = ref_F[keep]
     rms = torch.sqrt(torch.mean(ref_f.double() ** 2))
-    gap = (torch.abs(snap["F"][held] - ref_f).max().double() / rms
+    gap = (torch.abs(snap["F"][keep] - ref_f).max().double() / rms
            if len(ref_f) else torch.tensor(float("inf")))
-    rms_gap = (torch.sqrt(torch.mean((snap["F"][held] - ref_f).double() ** 2))
+    rms_gap = (torch.sqrt(torch.mean((snap["F"][keep] - ref_f).double() ** 2))
                / rms if len(ref_f) else torch.tensor(float("inf")))
     prior_bad = int(((prior.sdf != snap["prior_sdf"]) |
                      (prior.weight != snap["prior_w"])).sum())
-    return {"map_mismatch": float(structure), "latent_gap": float(gap),
-            "latent_rms_gap": float(rms_gap),
-            "prior_mismatch": float(prior_bad)}
+    out = {"map_mismatch": float(structure), "latent_gap": float(gap),
+           "latent_rms_gap": float(rms_gap),
+           "prior_mismatch": float(prior_bad)}
+    # the layouts read, not compared
+    if "blocks" in snap:
+        out["table_blocks"] = float(len(snap["blocks"]))
+    if "prior_bricks" in snap:
+        out["prior_bricks"] = float(snap["prior_bricks"])
+    return out
 
 
 def loss_gap(sys_losses, ref_losses) -> float:
@@ -399,10 +494,7 @@ class Stream:
                 prev = int(m)
         run.count("frames", n * len(marks))
         self.attempted, self.failed = n * len(marks), failed
-        fps = n * len(marks) / wall
-        # K=1 cells report it under a name of its own: host-paced, their
-        # runs spread wider and take a bound apart
-        return wall, {"fuse_fps": fps, "fuse_fps_k1": fps}
+        return wall, {"fuse_fps": n * len(marks) / wall}
 
     def outputs(self):
         self.snap = table_snapshot(self.nmap)
@@ -494,13 +586,15 @@ class Refine:
         for i in range(len(run.raw)):
             T, intr = run.ref_pose(i)
             frames.append((run.ref_depth(i, run.batch_k > 1), T, intr))
-        F0 = dmap.F.clone()
+        F, W, alloc = dmap.dense()
+        del dmap
+        F0 = F.clone()
         ref_losses = run.optimizer(grid).run(
-            dmap.F, dmap.W, dmap.alloc, run.delta(prior.sdf), frames,
-            self.gen_state, self.n_iters)
+            F, W, alloc, run.delta(prior.sdf), frames, self.gen_state,
+            self.n_iters)
         out["loss_gap"] = loss_gap(self.losses, ref_losses)
-        out["change_gap"] = change_gap(self.final, dmap.F, F0)
-        del dmap, F0
+        out["change_gap"] = change_gap(self.final, F, F0)
+        del F, W, alloc, F0
         out.update(mesh_check(run, grid, self.final, self.mesh))
         return out
 
@@ -650,9 +744,31 @@ def applies(metric: Dict, workload: str) -> bool:
     return "workloads" not in metric or workload in metric["workloads"]
 
 
+def base_name(name: str, known, sep: str) -> str:
+    """The number or reader a metric of BENCHMARK.json comes from: its own
+    name where ``known`` has it, or else the name it extends by
+    ``<sep><cells>`` (``fuse_fps_k1``, ``fuse.ms_per_frame.k1``: the same
+    quantity in cells that report it under a name of their own)."""
+    if name in known:
+        return name
+    stem = name.rpartition(sep)[0]
+    if stem in known:
+        return stem
+    raise KeyError(f"metric {name!r}: neither it nor {stem!r} is among "
+                   f"{sorted(known)}")
+
+
+def readers() -> List[str]:
+    """The per-layer readers, ``benchmark/metrics/<name>.py``."""
+    return [f[:-3] for f in os.listdir(os.path.join(HERE, "metrics"))
+            if f.endswith(".py") and not f.startswith("_")]
+
+
 def read_metric(name: str, ctx) -> Optional[float]:
-    """``benchmark/metrics/<name>.py``'s ``read(ctx)``: a number, or None
-    where the run has nothing for it to read."""
+    """The ``read(ctx)`` of the reader that ``name`` resolves to
+    (``base_name``): a number, or None where the run has nothing for it to
+    read."""
+    name = base_name(name, readers(), ".")
     path = os.path.join(HERE, "metrics", name + ".py")
     spec = importlib.util.spec_from_file_location(
         "benchmark_metric_" + name.replace(".", "_").replace("-", "_"), path)
@@ -684,6 +800,21 @@ class Context:
         self.rooflines = rooflines
 
 
+def reference_check(mode) -> Dict[str, float]:
+    """The mode's comparison with the plain reference, under PyTorch's
+    deterministic algorithms: on the card the reference's scatter-adds
+    (``index_add_``) then sum in a fixed order, so that its readings repeat
+    bit for bit from run to run (with atomic adds they differ in the last
+    bits)."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return mode.check()
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
 def run_cell(workload: str, seed: int, seconds: float, traced: bool,
              device: str = "cuda", **patches) -> Dict[str, Any]:
     """One run of one cell; returns the result object (``checks`` last).
@@ -713,7 +844,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     if device == "cuda":
         torch.cuda.empty_cache()
     limits = load_json(HERE, "limits", workload + ".json")["checks"]
-    values = mode.check()
+    values = reference_check(mode)
     checks = {k: {"value": values[k], "limit": limits[k]} for k in limits}
     correct = all(math.isfinite(c["value"]) and c["value"] <= c["limit"]
                   for c in checks.values())
@@ -730,8 +861,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         e2e["setup_s"] = t_window - _T_START
         for m in run.bench["end_to_end"]:
             if applies(m, workload):
-                metrics[m["name"]] = {"value": e2e[m["name"]],
-                                      "unit": m["unit"]}
+                key = base_name(m["name"], e2e, "_")
+                metrics[m["name"]] = {"value": e2e[key], "unit": m["unit"]}
     dev = {"platform": "gpu" if device == "cuda" else device,
            "kind": (torch.cuda.get_device_name(0) if device == "cuda"
                     else "cpu"),

@@ -6,7 +6,7 @@ import pytest
 
 from benchmark import calibrate
 from benchmark import run as bench_run
-from benchmark.tests.tiny import CASES, bench_with_parked, run_tiny
+from benchmark.tests.tiny import CASES, run_tiny
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -24,6 +24,6 @@ def test_control_is_not_correct_on_the_card(name, cuda_device):
     limits = bench_run.load_json(bench_run.HERE, "limits",
                                  name + ".json")["checks"]
     out = calibrate.readings(name, [], [11, 12, 13], 1.0, cuda_device,
-                             bench=bench_with_parked())
+                             bench=bench_run.bench_with_parked())
     for vals in out["control"]:
         assert vals is None or any(vals[k] > limits[k] for k in limits)

@@ -1,26 +1,65 @@
 """A run with the timed path broken underneath comes out not correct: for
 each fault a cell can have (a step that leaves its state unchanged, half of
 the batch left out with the mean over the rest, an answer altered where it
-is produced), planted in the system at a CPU size.  One card, so no
-exchange between cards to leave out."""
+is produced), planted in the system at a CPU size; on the block table and
+the block-major prior besides, one slot's write dropped, a brick of the
+prior left stale, and a block allocated that no frame touched.  One card,
+so no exchange between cards to leave out."""
 
 import pytest
 import torch
 
 from benchmark.tests.tiny import run_tiny
 
-TABLE = ("slot_map", "slot_flat", "features", "weights", "num_hits",
-         "n_alloc", "overflow")
-
 
 def _unchanged(fn):
     def broken(table, *a, **k):
-        saved = {n: getattr(table, n).clone() for n in TABLE}
+        saved = {n: v.clone() for n, v in vars(table).items()
+                 if torch.is_tensor(v)}
         out = fn(table, *a, **k)
         for n, v in saved.items():
-            setattr(table, n, v)
+            getattr(table, n).copy_(v)
         return out
     return broken
+
+
+def _dropped_slot(fn):
+    def broken(table, *a, **k):
+        saved = [t.clone() for t in (table.features, table.weights,
+                                     table.num_hits)]
+        out = fn(table, *a, **k)
+        i = int(torch.nonzero(table.weights != saved[1])[0, 0])
+        for t, v in zip((table.features, table.weights, table.num_hits),
+                        saved):
+            t[i] = v[i]
+        return out
+    return broken
+
+
+def _extra_block(fn):
+    def broken(table, *a, **k):
+        out = fn(table, *a, **k)
+        # the grid's last free block lies under the ceiling, which no frame
+        # of the house scans sees
+        free = torch.nonzero(table.block_map < 0)[-1, 0]
+        table.block_map[free] = int(table.n_alloc)
+        table.n_alloc = table.n_alloc + 1
+        return out
+    return broken
+
+
+def _stale_brick(mp):
+    from bnv_fusion_tpu_torch import tsdf
+
+    fn = tsdf.integrate_blocks
+
+    def broken(vol, *a, **k):
+        saved = vol.sdf.clone(), vol.weight.clone()
+        out = fn(vol, *a, **k)
+        b = int(torch.nonzero((vol.weight != saved[1]).any(1))[0, 0])
+        vol.sdf[b], vol.weight[b] = saved[0][b], saved[1][b]
+        return out
+    mp.setattr(tsdf, "integrate_blocks", broken)
 
 
 def _altered(fn):
@@ -105,6 +144,16 @@ FAULTS = {
     ("arkit.demo", "unchanged"): _adam_unchanged,
     ("arkit.demo", "half_batch"): _half_rays,
     ("arkit.demo", "altered"): _mesh_altered("extract_mesh_incremental"),
+    ("house.stream", "unchanged"): _fuse_fault("fuse_frames_merged",
+                                               _unchanged),
+    ("house.stream", "half_batch"): _fuse_fault("fuse_frames_merged",
+                                                _half_frames),
+    ("house.stream", "altered"): _fuse_fault("fuse_frames_merged", _altered),
+    ("house.stream", "dropped_slot"): _fuse_fault("fuse_frames_merged",
+                                                  _dropped_slot),
+    ("house.stream", "extra_block"): _fuse_fault("fuse_frames_merged",
+                                                 _extra_block),
+    ("house.stream", "stale_brick"): _stale_brick,
 }
 
 

@@ -18,7 +18,7 @@ import json, sys
 sys.path.insert(0, {root!r})
 from benchmark import run
 from benchmark.tests.tiny import run_tiny
-for name in ("scene3d.stream", "arkit.demo"):
+for name in ("scene3d.stream", "arkit.demo", "house.stream"):
     run_tiny(name, traced=True)
 print(json.dumps(sorted({{m.split(".", 1)[0] for m in sys.modules}})))
 """
