@@ -1,0 +1,10 @@
+"""fuse.prior.compact.ms_per_frame: time on the profiler's clock inside the
+block-major prior's ``fuse.prior.compact`` spans (the sort of every brick
+id and the cut to the brick budget; host ranges, waits for the card
+included) per frame fused, over the traced unit, in ms."""
+
+from benchmark.metrics._fuse_spans import _ms_per_frame
+
+
+def read(ctx):
+    return _ms_per_frame(ctx, ("fuse.prior.compact",))

@@ -169,14 +169,10 @@ class NeuralMap:
         # prior layout: dense [X, Y, Z] for small scenes; block-major bricks
         # with frustum-exact sparse updates (tsdf.integrate_blocks) under
         # model.tsdf_layout=blocks, or under auto from 8M prior voxels
-        layout = str(getattr(m, "tsdf_layout", "auto"))
-        min_c2, max_c2, _ = vx.get_world_range(self.dimensions,
-                                               self.tsdf_voxel_size)
-        prior_vox = int(np.prod(np.ceil(
-            (max_c2 - min_c2) / self.tsdf_voxel_size)))
         create = (tsdf.create_tsdf_volume_bm
-                  if layout == "blocks" or
-                  (layout == "auto" and prior_vox >= 8_000_000)
+                  if tsdf.is_block_major(
+                      str(getattr(m, "tsdf_layout", "auto")),
+                      self.dimensions, self.tsdf_voxel_size)
                   else tsdf.create_tsdf_volume)
         self.tsdf_vol, _ = create(self.dimensions, self.tsdf_voxel_size,
                                   device=self.device,

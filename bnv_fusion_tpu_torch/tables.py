@@ -34,12 +34,21 @@ AnyTable = Union[_hash.SparseVoxelTable, _dense.DenseIndexedTable,
 DENSE_MAP_MAX_VOXELS = 512 * 1024 * 1024
 
 
+def map_layout(n_xyz=None) -> str:
+    """The table ``create_table`` routes a grid of ``n_xyz`` to: "hash"
+    without bounds, "dense" below DENSE_MAP_MAX_VOXELS, else "blocks"."""
+    if n_xyz is None:
+        return "hash"
+    n_vox = int(n_xyz[0]) * int(n_xyz[1]) * int(n_xyz[2])
+    return "dense" if n_vox < DENSE_MAP_MAX_VOXELS else "blocks"
+
+
 def create_table(feat_dims: int, capacity: int, n_xyz=None,
                  device: torch.device | str = "cpu") -> AnyTable:
-    if n_xyz is None:
+    layout = map_layout(n_xyz)
+    if layout == "hash":
         return _hash.create_table(capacity, feat_dims, device)
-    n_vox = int(n_xyz[0]) * int(n_xyz[1]) * int(n_xyz[2])
-    if n_vox < DENSE_MAP_MAX_VOXELS:
+    if layout == "dense":
         return _dense.create_dense_table(n_xyz, capacity, feat_dims, device)
     # capacity counts voxels; a surface crossing a 4^3 block touches ~1/4
     # of its 64 slots, so block tables get 4x the slots (raises at 2^31)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from bnv_fusion_tpu_torch import voxel as vx
+from bnv_fusion_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -339,6 +340,19 @@ def integrate_windowed(vol: TSDFVolume, depth: torch.Tensor,
 
 TSDF_BLOCK = 4
 _BS = TSDF_BLOCK ** 3   # 64 voxels per block
+# model.tsdf_layout=auto holds the prior block-major from this many voxels
+BLOCKS_FROM_VOXELS = 8_000_000
+
+
+def is_block_major(layout: str, dimensions: np.ndarray,
+                   voxel_size: float) -> bool:
+    """Whether the pipeline holds a prior of ``voxel_size`` over
+    ``dimensions`` block-major: under ``model.tsdf_layout`` blocks, or under
+    auto from ``BLOCKS_FROM_VOXELS`` voxels of its grid."""
+    min_c, max_c, _ = vx.get_world_range(dimensions, voxel_size)
+    n = int(np.prod(np.ceil((max_c - min_c) / voxel_size)))
+    return layout == "blocks" or (layout == "auto" and
+                                  n >= BLOCKS_FROM_VOXELS)
 
 
 @dataclass
@@ -484,7 +498,12 @@ def integrate_blocks(vol: TSDFVolumeBM, depth: torch.Tensor,
     (``frustum_blocks``), in place.  The per-voxel math is ``integrate``'s,
     and a brick the cull drops cannot receive an update, so the result is
     exact.  The active bricks, in ascending id, are compacted to
-    ``max_blocks``; the excess is dropped and counted in ``vol.overflow``."""
+    ``max_blocks``; the excess is dropped and counted in ``vol.overflow``.
+    Inside a profiler capture the cull, the compaction and the brick update
+    are the spans ``fuse.prior.cull``, ``.compact`` and ``.bricks``, and
+    ``max_blocks`` (the rows the update runs over, pads included) is the
+    count ``fuse.prior.budget``; the active count is left out, since
+    reading it would wait on the device."""
     trunc = 5.0 * voxel_size
     nbx, nby, nbz = vol.nb_xyz
     n_blocks = nbx * nby * nbz
@@ -492,68 +511,75 @@ def integrate_blocks(vol: TSDFVolumeBM, depth: torch.Tensor,
     h, w = depth.shape
     fx, fy = intr[0, 0], intr[1, 1]
     cx, cy = intr[0, 2], intr[1, 2]
-    T_cw = torch.linalg.inv(T_wc)
-    active = frustum_blocks(vol, (h, w), intr, T_cw, voxel_size, max_depth)
-    bid = torch.arange(n_blocks, device=dev)
+    profiling.count("fuse.prior.budget", max_blocks)
+    with profiling.span("fuse.prior.cull"):
+        T_cw = torch.linalg.inv(T_wc)
+        active = frustum_blocks(vol, (h, w), intr, T_cw, voxel_size,
+                                max_depth)
 
     # compact to max_blocks (ascending id; the pad entries sort last)
-    n_active = active.sum()
-    ids = torch.sort(torch.where(active, bid, n_blocks)).values[:max_blocks]
-    a = ids.shape[0]
-    pos = torch.arange(a, device=dev)
-    n_in = torch.clamp(n_active, max=a)
-    amask = pos < n_in
-    ids_safe = torch.clamp(ids, max=n_blocks - 1)
+    with profiling.span("fuse.prior.compact"):
+        bid = torch.arange(n_blocks, device=dev)
+        n_active = active.sum()
+        ids = torch.sort(torch.where(active, bid, n_blocks)).values[
+            :max_blocks]
+        a = ids.shape[0]
+        pos = torch.arange(a, device=dev)
+        n_in = torch.clamp(n_active, max=a)
+        amask = pos < n_in
+        ids_safe = torch.clamp(ids, max=n_blocks - 1)
 
-    # --- the per-voxel update on the gathered bricks (integrate's math) ---
-    abxyz = torch.stack([ids_safe // (nby * nbz), (ids_safe // nbz) % nby,
-                         ids_safe % nbz], dim=-1)                # [A, 3]
-    li = torch.arange(_BS, device=dev)
-    lxyz = torch.stack([li // 16, (li // 4) % 4, li % 4], dim=-1)
-    world = (abxyz[:, None, :] * TSDF_BLOCK + lxyz[None]).to(torch.float32) \
-        * voxel_size + vol.origin                                # [A, 64, 3]
-    cam = world @ T_cw[:3, :3].T + T_cw[:3, 3]
-    zv = cam[..., 2]
-    safe_zv = torch.where(torch.abs(zv) > 1e-8, zv,
-                          torch.full((), 1e-8, device=dev))
-    pxi = torch.round(cam[..., 0] * fx / safe_zv + cx)
-    pyi = torch.round(cam[..., 1] * fy / safe_zv + cy)
-    in_view = (pxi >= 0) & (pxi < w) & (pyi >= 0) & (pyi < h) & (zv > 0)
-    flat = (torch.clamp(pyi, 0, h - 1) * w +
-            torch.clamp(pxi, 0, w - 1)).long()
-    zero = torch.zeros((), device=dev)
-    depth_val = torch.where(in_view, depth.reshape(-1)[flat], zero)
-    depth_diff = depth_val - zv
-    valid = (depth_val > 0) & (depth_diff >= -trunc) & amask[:, None]
-    dist = torch.clamp(depth_diff / trunc, max=1.0)
+    # the per-voxel update on the gathered bricks (integrate's math)
+    with profiling.span("fuse.prior.bricks"):
+        abxyz = torch.stack([ids_safe // (nby * nbz),
+                             (ids_safe // nbz) % nby,
+                             ids_safe % nbz], dim=-1)                # [A, 3]
+        li = torch.arange(_BS, device=dev)
+        lxyz = torch.stack([li // 16, (li // 4) % 4, li % 4], dim=-1)
+        world = (abxyz[:, None, :] * TSDF_BLOCK + lxyz[None]).to(
+            torch.float32) * voxel_size + vol.origin             # [A, 64, 3]
+        cam = world @ T_cw[:3, :3].T + T_cw[:3, 3]
+        zv = cam[..., 2]
+        safe_zv = torch.where(torch.abs(zv) > 1e-8, zv,
+                              torch.full((), 1e-8, device=dev))
+        pxi = torch.round(cam[..., 0] * fx / safe_zv + cx)
+        pyi = torch.round(cam[..., 1] * fy / safe_zv + cy)
+        in_view = (pxi >= 0) & (pxi < w) & (pyi >= 0) & (pyi < h) & (zv > 0)
+        flat = (torch.clamp(pyi, 0, h - 1) * w +
+                torch.clamp(pxi, 0, w - 1)).long()
+        zero = torch.zeros((), device=dev)
+        depth_val = torch.where(in_view, depth.reshape(-1)[flat], zero)
+        depth_diff = depth_val - zv
+        valid = (depth_val > 0) & (depth_diff >= -trunc) & amask[:, None]
+        dist = torch.clamp(depth_diff / trunc, max=1.0)
 
-    sdf_rows = vol.sdf[ids_safe]
-    w_rows = vol.weight[ids_safe]
-    w_new = w_rows + obs_weight
-    sdf_new = (w_rows * sdf_rows + obs_weight * dist) / w_new
-    out = [torch.where(valid, sdf_new, sdf_rows),
-           torch.where(valid, w_new, w_rows)]
-    if vol.color is not None and rgb is not None:
-        rgb_val = torch.where(valid[..., None],
-                              rgb.reshape(-1, 3).to(torch.float32)[flat],
-                              zero)
-        c_rows = vol.color[ids_safe]
-        # the running mean with the sdf's weights (w_rows the old weight)
-        out.append(torch.where(
-            valid[..., None],
-            (w_rows[..., None] * c_rows + obs_weight * rgb_val) /
-            torch.clamp(w_new, min=1e-12)[..., None], c_rows))
+        sdf_rows = vol.sdf[ids_safe]
+        w_rows = vol.weight[ids_safe]
+        w_new = w_rows + obs_weight
+        sdf_new = (w_rows * sdf_rows + obs_weight * dist) / w_new
+        out = [torch.where(valid, sdf_new, sdf_rows),
+               torch.where(valid, w_new, w_rows)]
+        if vol.color is not None and rgb is not None:
+            rgb_val = torch.where(valid[..., None],
+                                  rgb.reshape(-1, 3).to(torch.float32)[flat],
+                                  zero)
+            c_rows = vol.color[ids_safe]
+            # the running mean with the sdf's weights (w_rows the old weight)
+            out.append(torch.where(
+                valid[..., None],
+                (w_rows[..., None] * c_rows + obs_weight * rgb_val) /
+                torch.clamp(w_new, min=1e-12)[..., None], c_rows))
 
-    # The pad entries all point at the last brick.  They write what the
-    # real entry of that brick writes where it is active, and its unchanged
-    # rows where it is not, so every write to it agrees: the pads are
-    # dropped without reading n_active on the host.
-    last = torch.clamp(n_in - 1, min=0)
-    last_is_real = (n_in > 0) & (ids_safe[last] == n_blocks - 1)
-    src = torch.where(amask | ~last_is_real, pos, last)
-    vol.sdf[ids_safe] = out[0][src]
-    vol.weight[ids_safe] = out[1][src]
-    if len(out) > 2:
-        vol.color[ids_safe] = out[2][src]
-    vol.overflow += torch.clamp(n_active - max_blocks, min=0)
+        # The pad entries all point at the last brick.  They write what the
+        # real entry of that brick writes where it is active, and its
+        # unchanged rows where it is not, so every write to it agrees: the
+        # pads are dropped without reading n_active on the host.
+        last = torch.clamp(n_in - 1, min=0)
+        last_is_real = (n_in > 0) & (ids_safe[last] == n_blocks - 1)
+        src = torch.where(amask | ~last_is_real, pos, last)
+        vol.sdf[ids_safe] = out[0][src]
+        vol.weight[ids_safe] = out[1][src]
+        if len(out) > 2:
+            vol.color[ids_safe] = out[2][src]
+        vol.overflow += torch.clamp(n_active - max_blocks, min=0)
     return vol

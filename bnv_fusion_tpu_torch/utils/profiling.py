@@ -15,11 +15,18 @@ profiler makes no device-side copy of it.  What a stage costs is read from
 the capture: its ranges' host time, and the CUDA runtime's host waits
 (``cudaStreamSynchronize``, ``cudaEventSynchronize``) that start inside
 them.
+
+``count(name, value)`` is the program's counter: a host number (never a
+tensor, whose read would wait on the device).  Outside a capture it costs
+one flag check; inside one it records a host range named
+``<name>=<value>`` that closes as it opens, which a reader of the capture
+parses.
 """
 
 from __future__ import annotations
 
 import contextlib
+import numbers
 import os
 import time
 from typing import Dict, Iterator, Optional
@@ -97,3 +104,15 @@ def span(name: str):
     if not _PROFILER._is_profiler_enabled:
         return _OFF
     return torch._C._profiler._RecordFunctionFast(name)
+
+
+def count(name: str, value) -> None:
+    """The program's counter ``name`` at ``value``, a host number (see the
+    module docstring)."""
+    if not _PROFILER._is_profiler_enabled:
+        return
+    if isinstance(value, bool) or not isinstance(value, numbers.Real):
+        raise TypeError(f"profiling.count({name!r}) takes a host number, "
+                        f"not {type(value).__name__}")
+    with torch._C._profiler._RecordFunctionFast(f"{name}={value}"):
+        pass
